@@ -1,0 +1,66 @@
+"""BatchNorm with the semantics of the JAX package's `BatchNormTPU`
+(object_detection_torch2_tpu/models/bn.py:46-109), plain layout.
+
+Held against the JAX package, not against torch's own BatchNorm2d, so:
+- the batch variance is the single-pass max(E[x^2] - E[x]^2, 0) in float32,
+  not torch's two-pass variance;
+- `mask` (N,), 1 for real rows, excludes the pad rows of a ragged batch from the
+  statistics, so real rows come out as from a ragged-size forward;
+- the running statistics are updated (only in `training` mode, with batch
+  statistics) with torch's unbiased n/max(n-1, 1) correction and momentum 0.1;
+- the math runs in float32 and the output is cast to the compute dtype.
+
+State keys are torch's (`weight`, `bias`, `running_mean`, `running_var`,
+`num_batches_tracked`), so the reference's state_dicts load unchanged. The
+TPU's paired-lane `fold` layout is not ported.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+
+class BatchNorm(nn.Module):
+    def __init__(self, num_features: int, momentum: float = 0.1, eps: float = 1e-5):
+        super().__init__()
+        self.momentum = momentum
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(num_features))
+        self.bias = nn.Parameter(torch.zeros(num_features))
+        self.register_buffer("running_mean", torch.zeros(num_features))
+        self.register_buffer("running_var", torch.ones(num_features))
+        self.register_buffer("num_batches_tracked", torch.tensor(0, dtype=torch.long))
+
+    def forward(self, x: torch.Tensor, use_batch_stats: bool, mask: torch.Tensor | None = None,
+                out_dtype: torch.dtype | None = None) -> torch.Tensor:
+        """x: (N, C, H, W) in any memory format -> same shape in `out_dtype`
+        (default: x's dtype)."""
+        dims = (0, 2, 3)
+        if use_batch_stats:
+            xf = x.float()
+            if mask is None:
+                n = torch.tensor(float(x.numel() // x.shape[1]), device=x.device)
+                mean = xf.mean(dim=dims)
+                mean_sq = xf.square().mean(dim=dims)
+            else:
+                m = mask.float().reshape(-1, 1, 1, 1)
+                n = torch.clamp(m.sum() * (x.shape[2] * x.shape[3]), min=1.0)
+                inv_n = 1.0 / n
+                mean = (xf * m).sum(dim=dims) * inv_n
+                mean_sq = (xf.square() * m).sum(dim=dims) * inv_n
+            var = torch.clamp(mean_sq - mean.square(), min=0.0)
+            if self.training:
+                with torch.no_grad():
+                    unbiased = var * (n / torch.clamp(n - 1, min=1.0))
+                    keep = 1.0 - self.momentum
+                    self.running_mean.copy_(keep * self.running_mean + self.momentum * mean)
+                    self.running_var.copy_(keep * self.running_var + self.momentum * unbiased)
+                    self.num_batches_tracked += 1
+        else:
+            mean, var = self.running_mean, self.running_var
+
+        inv = torch.rsqrt(var + self.eps) * self.weight
+        shift = self.bias - mean * inv
+        out = x.float() * inv[None, :, None, None] + shift[None, :, None, None]
+        return out.to(out_dtype or x.dtype)

@@ -1,0 +1,174 @@
+"""SSD300 detector as a torch `nn.Module`
+(counterpart of the plain-layout math of object_detection_torch2_tpu/models/ssd.py:443-526).
+
+Architecture reproduces the reference (reference: src/model/ssd.py:22-106):
+
+- vgg16_bn trunk `conv_L_S` / `bn_L_S`, `pool_5` dropped. The 'M_P' pool
+  (pool_3) is MaxPool2d(2, 2, padding=1), padded with -inf — that pad is what
+  yields 38x38 at conv4_3 for a 300x300 input;
+- extra layers 6-11, each Conv+BN+ReLU (layer 6 a plain 3x3 conv, every extra
+  layer with BatchNorm — the reference's own deviations from the paper);
+- six 3x3 detector heads tapped after the ReLU of 4_3 / 7_1 / 8_2 / 9_2 / 10_2 /
+  11_2, H-major flattened and concatenated to (N, P, num_classes + 4), float32.
+
+Submodules are named after the reference's state_dict keys
+(`features.conv_L_S`, `features.bn_L_S`, `detectors.det_L_S`), so its
+state_dicts load with `load_state_dict` as they are.
+
+Layouts: the public input is NHWC in [0, 1] like the JAX package's; inside,
+activations are NCHW tensors in the channels_last memory format (the
+permuted NHWC input already has those strides), which cuDNN runs natively.
+
+Numerics: convs run in `dtype` (float32 or bfloat16), BatchNorm math in
+float32. In float32 the convs run in true f32, as the JAX package's
+`precision=HIGHEST` does: cuDNN's TF32 is switched off for the forward only.
+
+Not ported here: the TPU lane layouts of the same math (`paired_block1`,
+`conv12_stagger`, `conv12_kernel`, `conv12_pad_pairs`), the int8 paths and
+their calibration, `up_to` and `is_trainable`.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from object_detection_torch2_tpu_torch.models.bn import BatchNorm
+
+# ImageNet normalization (reference: src/model/vgg16.py:19-20)
+IMAGENET_MEAN = (0.485, 0.456, 0.406)
+IMAGENET_STD = (0.229, 0.224, 0.225)
+
+# VGG16-bn conv blocks: block L -> (channels per conv, pool spec after block).
+# Pool 'M' = valid 2x2/2; 'M_P' = 2x2/2 with padding 1 (reference: vgg16.py:25-30).
+# Block 5's pool is dropped in SSD (reference: ssd.py:38-40).
+VGG_BLOCKS = (
+    (1, (64, 64), "M"),
+    (2, (128, 128), "M"),
+    (3, (256, 256, 256), "M_P"),
+    (4, (512, 512, 512), "M"),
+    (5, (512, 512, 512), None),
+)
+
+# Extra layers: (name, kernel, out_channels, stride, padding) (reference: ssd.py:49-54)
+EXTRA_LAYERS = (
+    ("6_1", 3, 1024, 1, 1),
+    ("7_1", 1, 1024, 1, 0),
+    ("8_1", 1, 256, 1, 0),
+    ("8_2", 3, 512, 2, 1),
+    ("9_1", 1, 128, 1, 0),
+    ("9_2", 3, 256, 2, 1),
+    ("10_1", 1, 128, 1, 0),
+    ("10_2", 3, 256, 1, 0),
+    ("11_1", 1, 128, 1, 0),
+    ("11_2", 3, 256, 1, 0),
+)
+
+# Detection taps: layer suffix -> anchors-per-cell A (reference: ssd.py:70-77)
+DETECTOR_TAPS = (("4_3", 4), ("7_1", 6), ("8_2", 6), ("9_2", 6), ("10_2", 4), ("11_2", 4))
+
+DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _layer_specs():
+    specs, cin = [], 3
+    for block, channels, pool in VGG_BLOCKS:
+        for sub, ch in enumerate(channels, start=1):
+            last = sub == len(channels)
+            specs.append((f"{block}_{sub}", cin, ch, 3, 1, 1, pool if last else None))
+            cin = ch
+    for suffix, kernel, ch, stride, pad in EXTRA_LAYERS:
+        specs.append((suffix, cin, ch, kernel, stride, pad, None))
+        cin = ch
+    return tuple(specs)
+
+
+# (suffix, in_ch, out_ch, kernel, stride, pad, pool_after) for every
+# conv+BN+ReLU layer of the trunk and the extras, in forward order
+LAYER_SPECS = _layer_specs()
+
+
+def normalize_image(x: torch.Tensor) -> torch.Tensor:
+    """(x - mean) / std per channel, NHWC, in float32 (reference: vgg16.py:103-115).
+
+    Multiplies by the float32 reciprocal of std, as XLA compiles the JAX
+    package's division by a constant."""
+    x = x.to(torch.float32)
+    mean = torch.tensor(IMAGENET_MEAN, dtype=torch.float32, device=x.device)
+    inv_std = 1.0 / torch.tensor(IMAGENET_STD, dtype=torch.float32)
+    return (x - mean) * inv_std.to(x.device)
+
+
+class SSD(nn.Module):
+    """SSD300. Input (N, H, W, 3) in [0, 1]; output (N, P, num_classes + 4) float32.
+
+    `forward(x, use_batch_stats, batch_mask)`: `use_batch_stats=True` is the
+    reference-parity default (quirk Q9: the reference never calls .eval(), so
+    its inference normalizes with batch statistics). Running statistics are
+    updated only in `training` mode. `batch_mask` (N,) marks the real rows of a
+    padded batch (see models/bn.py).
+
+    Weights are drawn from `torch.Generator().manual_seed(seed)` on the CPU —
+    kaiming-normal fan_out convs with zero bias (reference: ssd.py:144-146) —
+    so a seed gives the same model on every device.
+    """
+
+    def __init__(self, num_classes: int = 21, dtype: torch.dtype = torch.float32, seed: int = 0):
+        super().__init__()
+        if dtype not in DTYPES:
+            raise ValueError(f"dtype must be one of {DTYPES}, got {dtype}")
+        self.num_classes = num_classes
+        self.dtype = dtype
+        self.features = nn.ModuleDict()
+        for suffix, cin, cout, k, stride, pad, _ in LAYER_SPECS:
+            self.features[f"conv_{suffix}"] = nn.Conv2d(cin, cout, k, stride=stride, padding=pad)
+            self.features[f"bn_{suffix}"] = BatchNorm(cout)
+        out_ch = dict((s, cout) for s, _, cout, *_ in LAYER_SPECS)
+        self.detectors = nn.ModuleDict({
+            f"det_{s}": nn.Conv2d(out_ch[s], a * (num_classes + 4), 3, padding=1)
+            for s, a in DETECTOR_TAPS
+        })
+        self.reset_parameters(seed)
+
+    @torch.no_grad()
+    def reset_parameters(self, seed: int = 0):
+        g = torch.Generator().manual_seed(seed)
+        for m in self.modules():
+            if isinstance(m, nn.Conv2d):
+                nn.init.kaiming_normal_(m.weight, mode="fan_out", nonlinearity="relu", generator=g)
+                nn.init.zeros_(m.bias)
+
+    def _conv(self, conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
+        return F.conv2d(x, conv.weight.to(self.dtype), conv.bias.to(self.dtype),
+                        stride=conv.stride, padding=conv.padding)
+
+    def forward(self, x: torch.Tensor, use_batch_stats: bool = True,
+                batch_mask: torch.Tensor | None = None) -> torch.Tensor:
+        cudnn = torch.backends.cudnn
+        with cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
+                         deterministic=cudnn.deterministic, allow_tf32=False):
+            return self._forward(x, use_batch_stats, batch_mask)
+
+    def _forward(self, x, use_batch_stats, batch_mask):
+        n = x.shape[0]
+        taps = dict(DETECTOR_TAPS)
+        # NHWC -> NCHW view with channels_last strides
+        x = normalize_image(x).permute(0, 3, 1, 2).to(self.dtype)
+        feature_maps = {}
+        for suffix, _, _, _, _, _, pool in LAYER_SPECS:
+            x = self._conv(self.features[f"conv_{suffix}"], x)
+            x = self.features[f"bn_{suffix}"](x, use_batch_stats, batch_mask, out_dtype=self.dtype)
+            x = F.relu(x)
+            if suffix in taps:
+                feature_maps[suffix] = x
+            if pool is not None:
+                x = F.max_pool2d(x, 2, 2, padding=1 if pool == "M_P" else 0)
+
+        outputs = []
+        for suffix, _ in DETECTOR_TAPS:
+            y = self._conv(self.detectors[f"det_{suffix}"], feature_maps[suffix])
+            # (N, A*(C+4), H, W) -> (N, H*W*A, C+4): rows h-major, then w, then
+            # anchor (reference: ssd.py:103)
+            outputs.append(y.permute(0, 2, 3, 1).reshape(n, -1, self.num_classes + 4))
+        return torch.cat(outputs, dim=1).to(torch.float32)

@@ -1,0 +1,103 @@
+"""Builds the package's CUDA kernels from `csrc/*.cu` at first use.
+
+Each source is compiled by nvcc into its own shared library with a plain C
+interface, loaded with ctypes:
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -fmad=false
+         -shared -Xcompiler -fPIC -o <build>/<hash>/lib<name>.so csrc/<name>.cu
+
+The output lands in `object_detection_torch2_tpu_torch/_build/`, in a
+directory keyed by a hash of the sources and the flags, so an edited source is
+rebuilt and an unchanged one is not. `build_all()` starts one nvcc per source,
+all at once. A failed build raises with nvcc's stderr. Nothing is downloaded.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+PACKAGE_DIR = Path(__file__).resolve().parent.parent
+CSRC = PACKAGE_DIR / "csrc"
+BUILD_ROOT = PACKAGE_DIR / "_build"
+DEFAULT_CUDA_HOME = "/usr/local/cuda"
+
+# -fmad=false: no FMA contraction, so the kernels round as their plain
+# PyTorch versions do (IEEE division is nvcc's default without --use_fast_math)
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-fmad=false",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+def sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def build_dir() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sorted(CSRC.glob("*.cu*")) + sorted(CSRC.glob("*.h")):
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_ROOT / h.hexdigest()[:16]
+
+
+def find_nvcc() -> str:
+    for cand in (os.environ.get("CUDA_HOME"), os.environ.get("CUDA_PATH"), DEFAULT_CUDA_HOME):
+        if cand and (Path(cand) / "bin" / "nvcc").is_file():
+            return str(Path(cand) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError(f"nvcc not found (looked in $CUDA_HOME, $CUDA_PATH, {DEFAULT_CUDA_HOME} and $PATH); "
+                           "the CUDA kernels are built on a machine with the CUDA toolkit")
+    return found
+
+
+def nvcc_command(nvcc: str, src: Path, out: Path) -> list[str]:
+    return [nvcc, *NVCC_FLAGS, "-o", str(out), str(src)]
+
+
+def library_path(name: str) -> Path:
+    return build_dir() / f"lib{name}.so"
+
+
+def build_all() -> dict[str, str]:
+    """Build every source that is not built yet, one nvcc per source, all
+    started together. Returns {name: nvcc's output (ptxas register and shared
+    memory report)} for the sources built by this call."""
+    todo = [s for s in sources() if not library_path(s.stem).is_file()]
+    if not todo:
+        return {}
+    nvcc = find_nvcc()
+    out_dir = build_dir()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for src in todo:
+        tmp = out_dir / f"lib{src.stem}.so.{os.getpid()}.tmp"
+        procs[src.stem] = (tmp, subprocess.Popen(nvcc_command(nvcc, src, tmp), stdout=subprocess.PIPE,
+                                                 stderr=subprocess.PIPE, text=True))
+    logs, failed = {}, []
+    for name, (tmp, proc) in procs.items():
+        stdout, stderr = proc.communicate()
+        logs[name] = stdout + stderr
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed on csrc/{name}.cu (exit {proc.returncode}):\n{stderr}")
+            tmp.unlink(missing_ok=True)
+        else:
+            os.replace(tmp, library_path(name))  # atomic: two processes building at once race harmlessly
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return logs
+
+
+@functools.lru_cache(maxsize=None)
+def load(name: str) -> ctypes.CDLL:
+    """The shared library of csrc/<name>.cu, built first if needed."""
+    if not (CSRC / f"{name}.cu").is_file():
+        raise FileNotFoundError(f"no kernel source csrc/{name}.cu")
+    if not library_path(name).is_file():
+        build_all()
+    return ctypes.CDLL(str(library_path(name)))

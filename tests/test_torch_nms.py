@@ -1,0 +1,208 @@
+"""Port parity for the NMS module that holds the CUDA kernel (ops/nms.py,
+ops/nms_cuda.py). On identical float32 inputs the port's keep masks must be
+EXACTLY equal to the JAX package's serial loop, its blocked-XLA sweep and its
+Pallas kernel (run in interpret mode, as tests/test_nms_pallas.py runs it).
+
+The CUDA kernel itself runs only on the card: tests/test_torch_cuda.py holds
+it against the plain sweep there."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from object_detection_torch2_tpu.ops import nms as jax_nms
+from object_detection_torch2_tpu.ops.nms_pallas import nms_keep_mask_pallas
+from object_detection_torch2_tpu_torch.ops import _build, nms, nms_cuda
+
+torch.set_num_threads(2)
+
+
+def _with_interpret(fn):
+    from jax.experimental.pallas import tpu as pltpu
+
+    def run(*args, **kwargs):
+        with pltpu.force_tpu_interpret_mode():
+            return fn(*args, **kwargs)
+
+    return run
+
+
+def _clustered(rng, n, p, clusters=6, spread=0.04):
+    boxes = np.zeros((n, p, 4), np.float32)
+    centers = rng.uniform(0.1, 0.9, (n, clusters, 2))
+    pick = rng.integers(0, clusters, (n, p))
+    boxes[..., :2] = np.take_along_axis(centers, pick[..., None], axis=1) + rng.normal(0, spread, (n, p, 2))
+    boxes[..., 2:] = rng.uniform(0.05, 0.35, (n, p, 2))
+    return boxes
+
+
+def _tied(rng, n, p):
+    """Exact duplicate boxes with exactly tied scores, and tied scores on
+    disjoint boxes."""
+    boxes = _clustered(rng, n, p)
+    boxes[:, 1::7] = boxes[:, 0:1]
+    scores = np.round(rng.uniform(-0.2, 1.0, (n, p)), 1).astype(np.float32)
+    scores[:, 1::7] = scores[:, 0:1]
+    return boxes, scores
+
+
+def _scores_with_positives(rng, n, p, n_pos):
+    scores = np.zeros((n, p), np.float32)
+    for i in range(n):
+        idx = rng.choice(p, n_pos, replace=False)
+        scores[i, idx] = rng.uniform(0.05, 1.0, n_pos)
+    return scores
+
+
+def _sorted(boxes, scores):
+    order = np.argsort(-scores, axis=-1, kind="stable")
+    return (np.take_along_axis(boxes, order[..., None], axis=1),
+            np.take_along_axis(scores, order, axis=1) > 0.0)
+
+
+def _port_masks(boxes, scores, thresh):
+    b, s = torch.from_numpy(boxes), torch.from_numpy(scores)
+    sb, sv = _sorted(boxes, scores)
+    return {
+        "serial": nms.nms_keep_mask_serial(b, s, thresh).numpy(),
+        "nms_keep_mask": nms.nms_keep_mask(b, s, thresh).numpy(),
+        "blocked_sorted": nms._blocked_keep_sorted(torch.from_numpy(sb), torch.from_numpy(sv), thresh).numpy(),
+        "keep_sorted_cpu": nms_cuda.keep_sorted(torch.from_numpy(sb), torch.from_numpy(sv), thresh).numpy(),
+    }
+
+
+def _jax_masks(boxes, scores, thresh, pallas):
+    jb, js = jnp.asarray(boxes), jnp.asarray(scores)
+    sb, sv = _sorted(boxes, scores)
+    out = {
+        "serial": np.asarray(jax_nms.nms_keep_mask_serial(jb, js, thresh)),
+        "xla": np.asarray(jax_nms.nms_keep_mask(jb, js, thresh, dense_backend="xla")),
+        "blocked_sorted": np.asarray(jax_nms._blocked_keep_sorted(jnp.asarray(sb), jnp.asarray(sv), thresh)),
+    }
+    if pallas:
+        out["pallas"] = np.asarray(_with_interpret(nms_keep_mask_pallas)(jb, js, thresh))
+    return out
+
+
+def _assert_all_equal(boxes, scores, thresh=0.5, pallas=False):
+    port = _port_masks(boxes, scores, thresh)
+    ref = _jax_masks(boxes, scores, thresh, pallas)
+    for name in ("serial", "nms_keep_mask"):
+        np.testing.assert_array_equal(port[name], ref["serial"], err_msg=name)
+        np.testing.assert_array_equal(port[name], ref["xla"], err_msg=name)
+        if pallas:
+            np.testing.assert_array_equal(port[name], ref["pallas"], err_msg=name)
+    for name in ("blocked_sorted", "keep_sorted_cpu"):
+        np.testing.assert_array_equal(port[name], ref["blocked_sorted"], err_msg=name)
+    return port["serial"]
+
+
+@pytest.mark.parametrize("p", [130, 300])
+@pytest.mark.parametrize("case", ["clustered", "tied"])
+def test_keep_masks_equal_jax_and_pallas(p, case):
+    rng = np.random.default_rng(7 + p)
+    if case == "clustered":
+        boxes = _clustered(rng, 2, p)
+        scores = rng.uniform(-0.2, 1.0, (2, p)).astype(np.float32)
+    else:
+        boxes, scores = _tied(rng, 2, p)
+    keep = _assert_all_equal(boxes, scores, pallas=True)
+    assert keep.any() and not keep.all()
+
+
+@pytest.mark.parametrize("thresh", [0.3, 0.7])
+def test_keep_masks_equal_jax_other_thresholds(thresh):
+    rng = np.random.default_rng(11)
+    boxes = _clustered(rng, 3, 300, spread=0.03)
+    scores = rng.uniform(-0.2, 1.0, (3, 300)).astype(np.float32)
+    _assert_all_equal(boxes, scores, thresh)
+
+
+@pytest.mark.parametrize("n_pos,path", [(100, 128), (128, 128), (129, 1024), (1024, 1024), (1025, "full")])
+def test_tiers_and_full_path_equal_jax(n_pos, path):
+    """Positive counts that select the 128 tier, the 1024 tier and the full
+    sweep at p = 1200; the sweep width seen by `keep_sorted` proves the tier."""
+    rng = np.random.default_rng(n_pos)
+    p = 1200
+    boxes = _clustered(rng, 2, p, clusters=12, spread=0.05)
+    scores = _scores_with_positives(rng, 2, p, n_pos)
+    widths = []
+
+    def spy(b, v, t):
+        widths.append(b.shape[1])
+        return nms_cuda.keep_sorted(b, v, t)
+
+    got = nms.nms_keep_mask(torch.from_numpy(boxes), torch.from_numpy(scores), 0.5, sweep=spy).numpy()
+    assert widths == [p if path == "full" else path]
+    want = np.asarray(jax_nms.nms_keep_mask(jnp.asarray(boxes), jnp.asarray(scores), dense_backend="xla"))
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, np.asarray(jax_nms.nms_keep_mask_serial(jnp.asarray(boxes),
+                                                                               jnp.asarray(scores))))
+
+
+def test_full_anchor_count_sparse_and_dense_equal_jax():
+    rng = np.random.default_rng(12)
+    p = 8732
+    boxes = np.zeros((2, p, 4), np.float32)
+    boxes[..., :2] = rng.uniform(0, 1, (2, p, 2))
+    boxes[..., 2:] = rng.uniform(0.02, 0.3, (2, p, 2))
+    dense = rng.uniform(0, 1, (2, p)).astype(np.float32)
+    dense[:, ::3] = 0.0
+    sparse = _scores_with_positives(rng, 2, p, 11)
+    for scores in (dense, sparse):
+        got = nms.nms_keep_mask(torch.from_numpy(boxes), torch.from_numpy(scores)).numpy()
+        want = np.asarray(jax_nms.nms_keep_mask(jnp.asarray(boxes), jnp.asarray(scores), dense_backend="xla"))
+        np.testing.assert_array_equal(got, want)
+
+
+def test_non_maximum_suppression_golden(goldens):
+    g = goldens("nms")
+    out = nms.non_maximum_suppression(torch.from_numpy(g["nms_in"])).numpy()
+    np.testing.assert_allclose(out, g["nms_out"], atol=1e-6)
+    np.testing.assert_array_equal(out, np.asarray(jax_nms.non_maximum_suppression(jnp.asarray(g["nms_in"]))))
+
+
+def test_non_maximum_suppression_ties_golden(goldens):
+    """Kept-row multiset equals the executed reference; the stable sort keeps
+    the lowest index of an exact-duplicate group, as the JAX package does."""
+    g = goldens("nms_ties")
+    ours = nms.non_maximum_suppression(torch.from_numpy(g["nms_in"])).numpy()
+    np.testing.assert_array_equal(ours, np.asarray(jax_nms.non_maximum_suppression(jnp.asarray(g["nms_in"]))))
+    kept = ours[..., 5:].max(-1) > 0
+    kept_ref = g["nms_out"][..., 5:].max(-1) > 0
+    for i in range(ours.shape[0]):
+        rows, rows_ref = ours[i][kept[i]], g["nms_out"][i][kept_ref[i]]
+        assert rows.shape == rows_ref.shape
+        np.testing.assert_allclose(rows[np.lexsort(rows.T)], rows_ref[np.lexsort(rows_ref.T)], atol=1e-6)
+
+
+def test_keep_sorted_refuses_other_devices():
+    boxes = torch.zeros((1, 4, 4), device="meta")
+    with pytest.raises(ValueError):
+        nms_cuda.keep_sorted(boxes, torch.zeros((1, 4), dtype=torch.bool, device="meta"))
+
+
+def test_kernel_wrapper_refuses_cpu_tensors():
+    """The wrapper checks its inputs before it loads or builds anything."""
+    before = nms_cuda.launches
+    with pytest.raises(ValueError):
+        nms_cuda.nms_keep_sorted_cuda(torch.zeros((1, 4, 4)), torch.zeros((1, 4), dtype=torch.bool))
+    assert nms_cuda.launches == before
+
+
+def test_build_flags_and_missing_nvcc(monkeypatch, tmp_path):
+    """The kernel is built for sm_90a without FMA contraction or fast math,
+    and a machine without nvcc gets an error that says so."""
+    assert [s.name for s in _build.sources()] == ["nms_keep_sorted.cu"]
+    cmd = _build.nvcc_command("nvcc", _build.sources()[0], tmp_path / "lib.so")
+    assert "arch=compute_90a,code=sm_90a" in cmd and "-fmad=false" in cmd
+    assert "--use_fast_math" not in cmd
+    monkeypatch.setattr(_build, "BUILD_ROOT", tmp_path)
+    monkeypatch.setattr(_build, "DEFAULT_CUDA_HOME", str(tmp_path))
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    for var in ("CUDA_HOME", "CUDA_PATH"):
+        monkeypatch.delenv(var, raising=False)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.build_all()
+    assert not list(tmp_path.glob("*/*.so"))
