@@ -1,24 +1,49 @@
-"""Drives the PyTorch/CUDA port's serving path on one CUDA card and checks it.
+"""Drives the PyTorch/CUDA port's serving and training paths on one CUDA card
+and checks them.
 
     python3 chip_smoke.py [--out results.json]
 
 Phases (any failure raises and exits non-zero; nothing is caught):
 1. device: the card's name and power limit (nvidia-smi) — no card, no run;
-2. build: the CUDA kernels from object_detection_torch2_tpu_torch/csrc/, with
-   nvcc's register and shared-memory report;
+2. build: the CUDA kernels from object_detection_torch2_tpu_torch/csrc/, one
+   nvcc per source, all started together, with nvcc's register and
+   shared-memory report;
 3. reference: the port's SSD forward on the card against the reference
    forward golden (tests/goldens/ssd_forward_pinned.npz) at its pinned
    tolerances, in float32 (which also proves cuDNN's TF32 is off) and bfloat16;
-4. kernel vs plain: the NMS sweep kernel against its plain PyTorch version on
-   the card, on seeded clustered boxes at batch 32 and widths 128, 1024 and
+4. NMS kernel vs plain: the NMS sweep kernel against its plain PyTorch version
+   on the card, on seeded clustered boxes at batch 32 and widths 128, 1024 and
    8732, dense and sparse: the keep masks must be identical;
-5. main path: `Predictor(batch_size=32)` on 70 seeded uint8 images (two full
-   batches and a ragged one) at imsize 300 with seeded weights, in float32 and
-   bfloat16. The NMS launch count is reset just before and read just after;
-   detections must be well-formed; the post-processing of one batch is redone
-   with the plain sweep on the same forward output and must give identical
-   packed rows; then img/s at batch 32;
-6. the kernels line (JSON), then the last line
+5. serving main path: `Predictor(batch_size=32)` on 70 seeded uint8 images
+   (two full batches and a ragged one) at imsize 300 with seeded weights, in
+   float32 and bfloat16. The NMS launch count is reset just before and read
+   just after; detections must be well-formed; the post-processing of one
+   batch is redone with the plain sweep on the same forward output and must
+   give identical packed rows; then img/s at batch 32;
+6. conv12 kernel vs plain: the conv_1_2 kernel against `conv12_plain` on the
+   card at the training path's shape (32, 64, 300, 300) channels_last and at a
+   ragged (3, 64, 38, 50), float32 and bfloat16, from seeded numpy inputs
+   (post-ReLU scale, kaiming fan_out weights). Tolerances: float32
+   max |kernel - plain| <= 1e-4 * max |plain|; bfloat16 each element within
+   2 bfloat16 ulps of the plain value's magnitude, or 1e-5 * max |plain| near
+   zero; the autograd backward of sum(y * r) against plain autograd within
+   rtol 1e-4.
+   Kernel, plain and F.conv2d (cuDNN) times beside the bound;
+7. trajectory replay: tests/goldens/train_trajectory.npz (20 steps, batch 4,
+   imsize 300) through `Trainer` with `conv12_kernel=True` in float32, to the
+   pins of tests/test_trajectory.py: per-step loss drift < 3e-3, step-0 drift
+   < 1e-4, final trainable-parameter and BN-statistics fingerprint budgets;
+   the frozen trunk bit-unchanged; one conv12 launch per forward;
+8. training main path: SSD300 at batch 32 with G = 64 GT rows, seeded
+   weights and batches, `conv12_kernel=True`, in float32 and bfloat16: five
+   `train_step`s, one `train_steps` call of K = 3 and one `eval_step`. The
+   conv12 launch count is reset just before and read just after. Losses
+   finite, the trunk bit-unchanged, every running statistic moved, an
+   all-void batch's loss exactly 0.0, and one step on the kernel path against
+   the same step with conv_1_2 on cuDNN (tolerances in `compare_conv12_paths`).
+   ms per step (CUDA events) and img/s, and the step split into forward,
+   loss, backward and Adam;
+9. the kernels line (JSON), then the last line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Imports nothing of JAX. Every time printed here was measured on the card in
@@ -38,19 +63,27 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 ROOT = Path(__file__).resolve().parent
 GOLDEN = ROOT / "tests" / "goldens" / "ssd_forward_pinned.npz"
+TRAJECTORY = ROOT / "tests" / "goldens" / "train_trajectory.npz"
 IOU_THRESH = 0.5
 BATCH = 32
 N_IMAGES = 70
 IMSIZE = 300
 DEVICE = torch.device("cuda")
+CONV12_SHAPE = (BATCH, 64, IMSIZE, IMSIZE)  # conv_1_2's input on the training path
+G_PAD = 64  # GT rows per image, the CLI's padding (object_detection_torch2_tpu/cli/common.py:44)
+TRAIN_STEPS = 5
+K_STEPS = 3
 
 # H100 SXM data-sheet peaks: HBM bytes/s and float32 operations/s outside
 # the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
+# dense bfloat16 on the tensor cores
+PEAK_BF16_OPS_PER_S = 989e12
 # float32 operations in one IoU test of the kernel (csrc/nms_keep_sorted.cu
 # `overlaps`): 2 min, 2 max, 2 sub, 2 clamps, inter mul, union add and sub,
 # inter > 0, the division, the threshold compare
@@ -99,6 +132,55 @@ def synth_array_scaled(key: str, shape: tuple) -> np.ndarray:
     if key.endswith(".weight") and len(shape) == 1:
         return (1.0 + 0.05 * rng.standard_normal(shape)).astype(np.float32)
     return (0.01 * rng.standard_normal(shape)).astype(np.float32)
+
+
+def unpack_manifest(keys, shapes) -> dict:
+    """{key: shape} from a golden's manifest (zero-padded shape rows)."""
+    out = {}
+    for k, row in zip(keys, shapes):
+        shape = [int(v) for v in row]
+        while shape and shape[-1] == 0:
+            shape.pop()
+        out[str(k)] = tuple(shape)
+    return out
+
+
+def synth_targets(rng, n: int, g_real, g_pad: int, num_classes: int = 21) -> np.ndarray:
+    """The trajectory golden's GT recipe (the JAX package's utils/testing.py):
+    (N, G_pad, 4 + C) center-form boxes + one-hot with void at 0, zero rows
+    beyond g_real[i]."""
+    gts = np.zeros((n, g_pad, 4 + num_classes), np.float32)
+    for i in range(n):
+        g = int(g_real[i])
+        gts[i, :g, :2] = rng.uniform(0.2, 0.8, (g, 2))
+        gts[i, :g, 2:4] = rng.uniform(0.05, 0.45, (g, 2))
+        gts[i, np.arange(g), 4 + rng.integers(1, num_classes, g)] = 1.0
+    return gts
+
+
+def synth_trajectory_batch(step: int, n: int = 4, imsize: int = 300, g_pad: int = 8):
+    """The trajectory golden's batch recipe: (images NCHW in [0, 1], targets)."""
+    rng = np.random.default_rng(0xBA7C4 + 7919 * step)
+    images = rng.uniform(0.0, 1.0, (n, 3, imsize, imsize)).astype(np.float32)
+    return images, synth_targets(rng, n, rng.integers(1, g_pad + 1, n), g_pad)
+
+
+def fingerprint_tree(tree: dict, k: int = 8):
+    """The golden's parameter fingerprints (the JAX package's utils/testing.py):
+    (sorted 'layer/leaf' paths, (n, k + 3) rows of [l2, mean, absmax,
+    k seeded unit-direction projections])."""
+    keys, rows = [], []
+    for layer in sorted(tree):
+        for leaf in sorted(tree[layer]):
+            path = f"{layer}/{leaf}"
+            flat = np.asarray(tree[layer][leaf], np.float64).ravel()
+            row = [np.sqrt(np.dot(flat, flat)), flat.mean(), np.abs(flat).max()]
+            for j in range(k):
+                v = np.random.default_rng(zlib.crc32(f"fp:{path}:{j}".encode()) & 0xFFFFFFFF).standard_normal(flat.size)
+                row.append(np.dot(flat, v / np.sqrt(np.dot(v, v))))
+            keys.append(path)
+            rows.append(row)
+    return np.array(keys), np.array(rows, np.float64)
 
 
 def phase_reference(card: str) -> dict:
@@ -320,6 +402,332 @@ def kernel_entry(main: dict, card: str) -> dict:
     }
 
 
+def conv12_within_tolerance(got: torch.Tensor, want: torch.Tensor) -> bool:
+    """float32: max |got - want| <= 1e-4 * max |want| (sums of 576 products in
+    another order). bfloat16: each element within 2 bfloat16 ulps of want's
+    magnitude, or within 1e-5 * max |want| near zero, where the float32 sum
+    order alone moves a value by more ulps of itself than it has."""
+    g, w = got.float(), want.float()
+    d = (g - w).abs()
+    scale = float(w.abs().max())
+    if got.dtype == torch.float32:
+        return float(d.max()) <= 1e-4 * scale
+    ulp = torch.exp2(torch.floor(torch.log2(w.abs().clamp_min(1e-30))) - 7)
+    return bool((d <= torch.maximum(2 * ulp, torch.full_like(ulp, 1e-5 * scale))).all())
+
+
+def conv12_case(shape, dtype, seed: int):
+    """Seeded conv_1_2 operands: x (N, 64, H, W) channels_last at post-ReLU
+    scale, w (64, 64, 3, 3) kaiming fan_out, b (64,) float32."""
+    n, c, h, w = shape
+    rng = np.random.default_rng(seed)
+    x = np.maximum(rng.standard_normal((n, h, w, c), dtype=np.float32), 0)
+    wt = (np.sqrt(2.0 / (c * 9)) * rng.standard_normal((c, c, 3, 3))).astype(np.float32)
+    b = (0.1 * rng.standard_normal(c)).astype(np.float32)
+    xt = torch.from_numpy(x).to(DEVICE).permute(0, 3, 1, 2).to(dtype)
+    return xt, torch.from_numpy(wt).to(DEVICE, dtype), torch.from_numpy(b).to(DEVICE)
+
+
+def conv12_bound(shape, dtype) -> dict:
+    """The least time for conv_1_2 at `shape`: x and w read once, y written
+    once, over HBM's rate; 2*N*H*W*9*C*C operations over the peak of the
+    input's type (float32 on the CUDA cores, bfloat16 on the tensor cores)."""
+    n, c, h, w = shape
+    item = torch.empty((), dtype=dtype).element_size()
+    bytes_moved = 2 * n * c * h * w * item + 9 * c * c * item + 4 * c
+    ops = 2 * n * h * w * 9 * c * c
+    peak = PEAK_F32_OPS_PER_S if dtype == torch.float32 else PEAK_BF16_OPS_PER_S
+    bytes_ms, ops_ms = bytes_moved / PEAK_BYTES_PER_S * 1e3, ops / peak * 1e3
+    return {"bound_ms": max(bytes_ms, ops_ms), "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bytes": bytes_moved, "operations": ops}
+
+
+def compare_conv12(shape, dtype, seed: int, timed: bool) -> dict:
+    from object_detection_torch2_tpu_torch import true_float32
+    from object_detection_torch2_tpu_torch.ops import conv12_cuda
+    from object_detection_torch2_tpu_torch.ops.conv12 import conv12_plain
+
+    x, w, b = conv12_case(shape, dtype, seed)
+    got = conv12_cuda.conv12_cuda(x, w, b)
+    torch.cuda.synchronize()
+    want = conv12_plain(x, w, b)
+    err = float((got.float() - want.float()).abs().max())
+    if not conv12_within_tolerance(got, want):
+        raise AssertionError(f"conv12 kernel is off its plain version at {shape} {dtype}: max |d| {err:.3e}, "
+                             f"max |plain| {float(want.abs().max()):.3e}")
+    r = {"shape": list(shape), "dtype": str(dtype).replace("torch.", ""), "max_abs_err": err,
+         "max_abs_plain": float(want.abs().max()), "within_tolerance": True}
+    if timed:
+        r["kernel_ms"] = time_ms(lambda: conv12_cuda.conv12_cuda(x, w, b), reps=5)
+        r["plain_ms"] = time_ms(lambda: conv12_plain(x, w, b), reps=3)
+        bl = b.to(dtype)
+        with true_float32():
+            r["library_ms"] = time_ms(lambda: F.conv2d(x, w, bl, padding=1), reps=5)
+        r.update(conv12_bound(shape, dtype))
+    return r
+
+
+def phase_conv12(card: str) -> dict:
+    from object_detection_torch2_tpu_torch import true_float32
+    from object_detection_torch2_tpu_torch.ops.conv12 import conv12, conv12_plain
+
+    res = {}
+    for seed, dtype in enumerate((torch.float32, torch.bfloat16)):
+        r = compare_conv12(CONV12_SHAPE, dtype, seed, timed=True)
+        res[r["dtype"]] = r
+        print(f"conv12 {r['dtype']} {CONV12_SHAPE}: within tolerance of plain (max |d| {r['max_abs_err']:.3e} of "
+              f"max |plain| {r['max_abs_plain']:.3e}), kernel {r['kernel_ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, "
+              f"F.conv2d {r['library_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}) ({card})")
+        torch.cuda.empty_cache()
+    res["ragged"] = [compare_conv12((3, 64, 38, 50), dtype, 7, timed=False) for dtype in (torch.float32, torch.bfloat16)]
+
+    # a linear loss sum(y * r): both backwards get the same cotangent r, so
+    # only their own arithmetic differs
+    x, w, b = conv12_case((3, 64, 38, 50), torch.float32, 11)
+    r = torch.from_numpy(np.random.default_rng(12).standard_normal(x.shape).astype(np.float32)).to(DEVICE)
+    grads = []
+    for fn in (conv12, conv12_plain):
+        xs, ws, bs = (t.clone().requires_grad_(True) for t in (x, w, b))
+        with true_float32():
+            (fn(xs, ws, bs) * r).sum().backward()
+        grads.append((xs.grad, ws.grad, bs.grad))
+    for got, want in zip(*grads):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    res["backward_rtol_1e-4"] = True
+    print(f"conv12 ragged (3, 64, 38, 50) float32 and bfloat16 within tolerance; autograd backward within rtol "
+          f"1e-4 of plain autograd ({card})")
+    return res
+
+
+def phase_trajectory(card: str) -> dict:
+    """The reference's 20-step training run replayed on the card with the
+    conv12 kernel, to the pins of tests/test_trajectory.py."""
+    from object_detection_torch2_tpu_torch.core.anchors import default_boxes
+    from object_detection_torch2_tpu_torch.models.convert import jax_tree, ssd_state_dict_from_torch
+    from object_detection_torch2_tpu_torch.models.ssd import SSD
+    from object_detection_torch2_tpu_torch.ops import conv12_cuda
+    from object_detection_torch2_tpu_torch.train.optimizer import adam_torch, exponential_epoch_schedule
+    from object_detection_torch2_tpu_torch.train.trainer import Trainer
+
+    g = np.load(TRAJECTORY)
+    steps, spe, bs = int(g["steps"]), int(g["steps_per_epoch"]), int(g["bs"])
+    sd = ssd_state_dict_from_torch({k: synth_array_scaled(k, shape) for k, shape in
+                                    unpack_manifest(g["manifest_keys"], g["manifest_shapes"]).items()})
+    trainer = Trainer(SSD(num_classes=21, conv12_kernel=True), default_boxes=default_boxes())
+    schedule = exponential_epoch_schedule(float(g["lr"]), float(g["gamma"]), spe)
+    state = trainer.init_state(lambda ps: adam_torch(ps, schedule, weight_decay=float(g["weight_decay"])),
+                               state_dict=sd)
+    frozen0 = {k: v.clone() for k, v in state.frozen.items()}
+
+    conv12_cuda.launches = 0
+    losses = []
+    for step in range(steps):
+        images, targets = synth_trajectory_batch(step, n=bs)
+        losses.append(float(trainer.train_step(state, np.ascontiguousarray(images.transpose(0, 2, 3, 1)), targets)))
+    launches = conv12_cuda.launches
+    if launches != steps:
+        raise AssertionError(f"{steps} forwards launched the conv12 kernel {launches} times")
+
+    ref = g["losses"]
+    drift = np.abs(np.array(losses) - ref) / np.maximum(np.abs(ref), 1e-9)
+    assert drift.max() < 3e-3, f"loss trajectory drift {drift.max():.2e} at step {drift.argmax()}"
+    assert drift[0] < 1e-4, f"step-0 loss drift {drift[0]:.2e}"
+
+    keys, fp = fingerprint_tree(jax_tree(state.trainable))
+    assert list(keys) == [str(k) for k in g["param_fp_keys"]], "trainable tensor inventory differs from the golden's"
+    absd, l2 = np.abs(fp - g["param_fp"]).max(axis=1), g["param_fp"][:, 0]
+    param_ratio = absd / (5e-3 * l2 + 1e-2)
+    assert (param_ratio <= 1).all(), f"param drift over budget at {keys[param_ratio.argmax()]}"
+
+    keys, fp = fingerprint_tree(jax_tree(state.batch_stats))
+    assert list(keys) == [str(k) for k in g["bs_fp_keys"]], "BN statistics inventory differs from the golden's"
+    absd, l2 = np.abs(fp - g["bs_fp"]).max(axis=1), g["bs_fp"][:, 0]
+    trunk = np.array([int(k.split("_")[1].split("/")[0]) <= 5 for k in keys])
+    assert (absd[trunk] <= 1e-4).all(), f"frozen-trunk BN statistics drift {absd[trunk].max():.2e}"
+    bs_ratio = absd / (0.1 * l2 + 0.1)
+    assert (bs_ratio <= 1).all(), f"BN statistics drift over budget at {keys[bs_ratio.argmax()]}"
+    for name, p in state.frozen.items():
+        assert torch.equal(p, frozen0[name]), f"frozen {name} changed"
+
+    print(f"trajectory replay float32, conv12 kernel: {steps} steps, conv12 launches {launches}, loss drift max "
+          f"{drift.max():.2e} (pin 3e-3), step 0 {drift[0]:.2e} (pin 1e-4), param budget use {param_ratio.max():.3f}, "
+          f"BN statistics budget use {bs_ratio.max():.3f}, trunk BN max |d| {absd[trunk].max():.2e} (pin 1e-4), "
+          f"trunk bit-unchanged ({card})")
+    return {"steps": steps, "conv12_launches": launches, "loss_drift_max": float(drift.max()),
+            "loss_drift_step0": float(drift[0]), "param_budget_use": float(param_ratio.max()),
+            "bn_budget_use": float(bs_ratio.max()), "trunk_bn_max_abs": float(absd[trunk].max()),
+            "losses": losses}
+
+
+def compare_conv12_paths(start_sd: dict, dtype, df, images, targets) -> dict:
+    """One train step from the same state with conv_1_2 on the kernel and on
+    cuDNN (the model's default path); each step's loss and applied gradients
+    (global L2 of the difference over the other's).
+
+    float32: the two steps agree within 1e-4 on the loss (the trajectory's
+    step-0 pin) and 1e-3 on the gradients (sum-order noise through 33
+    batch-statistics layers). bfloat16: the two paths round conv_1_2
+    differently (the kernel once, after the float32 bias; cuDNN in its own
+    way), and 34 more bfloat16 layers amplify either rounding, so each is held
+    against the float32 step from the same state instead: the kernel path may
+    be no farther from it than the cuDNN path is, within a factor of 2
+    (+1e-4 on the loss)."""
+    from object_detection_torch2_tpu_torch.models.ssd import SSD
+    from object_detection_torch2_tpu_torch.train.optimizer import adam_torch
+    from object_detection_torch2_tpu_torch.train.trainer import Trainer
+
+    def one_step(dt, kernel):
+        trainer = Trainer(SSD(num_classes=21, dtype=dt, conv12_kernel=kernel), default_boxes=df)
+        state = trainer.init_state(lambda ps: adam_torch(ps, 1e-3, weight_decay=5e-4), state_dict=start_sd)
+        captured = []
+        apply = state.apply_gradients
+        state.apply_gradients = lambda grads: (captured.extend(g.float() for g in grads), apply(grads))
+        loss = float(trainer.train_step(state, images, targets))
+        return loss, captured
+
+    def distance(a, b):
+        (la, ga), (lb, gb) = a, b
+        return abs(la - lb) / abs(lb), float(torch.sqrt(sum(((x - y) ** 2).sum() for x, y in zip(ga, gb))
+                                                        / sum((y ** 2).sum() for y in gb)))
+
+    kernel, cudnn = one_step(dtype, True), one_step(dtype, False)
+    if dtype == torch.float32:
+        loss_rel, grad_rel = distance(kernel, cudnn)
+        if not (loss_rel <= 1e-4 and grad_rel <= 1e-3):
+            raise AssertionError(f"float32 kernel and cuDNN conv_1_2 steps differ: loss {loss_rel:.2e} (tol 1e-4), "
+                                 f"gradients {grad_rel:.2e} (tol 1e-3)")
+        return {"loss_kernel": kernel[0], "loss_cudnn": cudnn[0], "loss_rel": loss_rel, "grad_rel": grad_rel}
+    reference = one_step(torch.float32, True)
+    k_loss, k_grad = distance(kernel, reference)
+    c_loss, c_grad = distance(cudnn, reference)
+    if not (k_loss <= 2 * c_loss + 1e-4 and k_grad <= 2 * c_grad):
+        raise AssertionError(f"bfloat16 kernel path is farther from float32 than cuDNN's: loss {k_loss:.2e} vs "
+                             f"{c_loss:.2e}, gradients {k_grad:.2e} vs {c_grad:.2e}")
+    return {"loss_kernel": kernel[0], "loss_cudnn": cudnn[0], "loss_float32": reference[0],
+            "kernel_vs_float32": [k_loss, k_grad], "cudnn_vs_float32": [c_loss, c_grad]}
+
+
+def step_breakdown(state, default_boxes_t, images, targets, reps: int = 3) -> dict:
+    """A train step's device time split into forward, loss, backward and
+    Adam (CUDA events; median of `reps`). The same calls as
+    `Trainer.train_step`, with events between them."""
+    from object_detection_torch2_tpu_torch import true_float32
+    from object_detection_torch2_tpu_torch.core.multibox import multibox_loss
+    from object_detection_torch2_tpu_torch.data.augment import to_tensor_batch
+
+    x = to_tensor_batch(torch.from_numpy(images).to(DEVICE))
+    t = torch.from_numpy(targets).to(DEVICE)
+    params = list(state.trainable.values())
+    phases = {"forward": [], "loss": [], "backward": [], "adam": []}
+    for _ in range(reps):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        state.model.train()
+        with true_float32():
+            ev[0].record()
+            out = state.model(x, use_batch_stats=True)
+            ev[1].record()
+            loss = multibox_loss(out, t, default_boxes_t)
+            ev[2].record()
+            grads = torch.autograd.grad(loss, params, materialize_grads=True)
+            ev[3].record()
+        state.apply_gradients(grads)
+        ev[4].record()
+        ev[4].synchronize()
+        for i, name in enumerate(phases):
+            phases[name].append(ev[i].elapsed_time(ev[i + 1]))
+    return {name: statistics.median(v) for name, v in phases.items()}
+
+
+def phase_training(card: str) -> dict:
+    """The training main path at full width: SSD300, batch 32, G = 64, seeded
+    weights and uint8 batches, conv12 kernel on, float32 and bfloat16."""
+    from object_detection_torch2_tpu_torch.core.anchors import default_boxes, feature_grids_for
+    from object_detection_torch2_tpu_torch.models.ssd import SSD
+    from object_detection_torch2_tpu_torch.ops import conv12_cuda
+    from object_detection_torch2_tpu_torch.train.optimizer import adam_torch, exponential_epoch_schedule
+    from object_detection_torch2_tpu_torch.train.trainer import Trainer
+
+    df = default_boxes(feature_grids_for(IMSIZE))
+    rng = np.random.default_rng(2024)
+    n_batches = TRAIN_STEPS + K_STEPS + 1
+    images = rng.integers(0, 256, (n_batches, BATCH, IMSIZE, IMSIZE, 3), dtype=np.uint8)
+    targets = np.stack([synth_targets(rng, BATCH, rng.integers(1, G_PAD + 1, BATCH), G_PAD) for _ in range(n_batches)])
+    res = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).replace("torch.", "")
+        trainer = Trainer(SSD(num_classes=21, dtype=dtype, seed=0, conv12_kernel=True), default_boxes=df)
+        state = trainer.init_state(lambda ps: adam_torch(ps, exponential_epoch_schedule(1e-3, 0.7, TRAIN_STEPS),
+                                                         weight_decay=5e-4))
+        start_sd = {k: v.clone() for k, v in state.model.state_dict().items()}
+        frozen0 = {k: v.clone() for k, v in state.frozen.items()}
+        stats0 = {k: v.clone() for k, v in state.batch_stats.items()}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+
+        conv12_cuda.launches = 0
+        losses, step_ms = [], []
+        for i in range(TRAIN_STEPS):
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            loss = trainer.train_step(state, images[i], targets[i])
+            e1.record()
+            e1.synchronize()
+            step_ms.append(e0.elapsed_time(e1))
+            losses.append(float(loss))
+        k_losses = trainer.train_steps(state, images[TRAIN_STEPS:TRAIN_STEPS + K_STEPS],
+                                       targets[TRAIN_STEPS:TRAIN_STEPS + K_STEPS]).tolist()
+        eval_loss = float(trainer.eval_step(state, images[-1], targets[-1]))
+        torch.cuda.synchronize()
+        launches = conv12_cuda.launches
+        if launches != n_batches:
+            raise AssertionError(f"{n_batches} training forwards launched the conv12 kernel {launches} times")
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+        if not np.isfinite(losses + k_losses + [eval_loss]).all():
+            raise AssertionError(f"non-finite training loss in {name}: {losses}, {k_losses}, {eval_loss}")
+        for key, p in state.frozen.items():
+            assert torch.equal(p, frozen0[key]), f"frozen {key} changed"
+        assert all(not torch.equal(b, stats0[key]) for key, b in state.batch_stats.items()), "a BN statistic did not move"
+        assert state.step == TRAIN_STEPS + K_STEPS
+        zero = trainer.eval_step(state, images[0], np.zeros_like(targets[0]))
+        assert zero.item() == 0.0, f"all-void batch loss {zero.item()!r}, not 0.0"
+
+        paths = compare_conv12_paths(start_sd, dtype, df, images[0], targets[0])
+        split = step_breakdown(state, trainer.default_boxes, images[0], targets[0])
+        ms = statistics.median(step_ms[1:])
+        res[name] = {"conv12_launches": launches, "losses": losses, "train_steps_losses": k_losses,
+                     "eval_loss": eval_loss, "step_ms": step_ms, "median_step_ms": ms, "img_per_s": BATCH / ms * 1e3,
+                     "peak_gb": peak_gb, "split_ms": split, "kernel_vs_cudnn_step": paths}
+        print(f"training main path {name} bs{BATCH} G{G_PAD}: losses {losses[0]:.4f} -> {k_losses[-1]:.4f}, eval "
+              f"{eval_loss:.4f}, all-void 0.0, trunk bit-unchanged, conv12 launches {launches} for {n_batches} "
+              f"forwards; {ms:.2f} ms/step, {BATCH / ms * 1e3:.1f} img/s (steps 2-{TRAIN_STEPS}); split forward "
+              f"{split['forward']:.2f} / loss {split['loss']:.2f} / backward {split['backward']:.2f} / adam "
+              f"{split['adam']:.2f} ms; peak {peak_gb:.1f} GB; conv_1_2 kernel vs cuDNN step: {paths} ({card})")
+        del trainer, state
+        torch.cuda.empty_cache()
+    return res
+
+
+def conv12_entry(conv: dict, training: dict) -> dict:
+    """The kernels-line entry of conv12: float32 at the training path's shape
+    in the top-level keys, bfloat16 beside them; launches from the training
+    main path (both dtypes)."""
+    def keys(r, launches):
+        return {"launches": launches, "max_abs_err": r["max_abs_err"], "within_tolerance": r["within_tolerance"],
+                "ms": r["kernel_ms"], "kernel_ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
+                "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+                "bytes": r["bytes"], "operations": r["operations"]}
+
+    f32, bf16 = conv["float32"], conv["bfloat16"]
+    entry = {"name": "conv12", "route": "cuda", "source": "object_detection_torch2_tpu_torch/csrc/conv12.cu",
+             "replaces": "object_detection_torch2_tpu/ops/conv12_pallas.py:103",  # _kernel
+             "shape": f32["shape"], "dtype": "float32"}
+    entry.update(keys(f32, training["float32"]["conv12_launches"] + training["bfloat16"]["conv12_launches"]))
+    entry["bfloat16"] = keys(bf16, training["bfloat16"]["conv12_launches"])
+    entry["library"] = "F.conv2d (cuDNN; TF32 off in float32)"
+    return entry
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", type=Path, help="also write every measurement to this JSON file")
@@ -347,14 +755,18 @@ def main(argv=None) -> int:
     results = {"card": card, "reference": phase_reference(card)}
     results["kernel_vs_plain"] = phase_kernel_vs_plain(card)
     main_path = phase_main_path(card)
-    entry = kernel_entry(main_path, card)
+    entries = [kernel_entry(main_path, card)]
     results["main_path"] = main_path
-    results["kernels"] = [entry]
+    results["conv12_vs_plain"] = phase_conv12(card)
+    results["trajectory"] = phase_trajectory(card)
+    results["training"] = phase_training(card)
+    entries.append(conv12_entry(results["conv12_vs_plain"], results["training"]))
+    results["kernels"] = entries
     if args.out:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps(results, indent=1))
 
-    print(json.dumps({"kernels": [entry]}))
+    print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

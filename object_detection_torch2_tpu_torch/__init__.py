@@ -26,3 +26,13 @@ def resolve_device(device=None) -> torch.device:
             "no CUDA device is available; pass device='cpu' to run on the CPU explicitly"
         )
     return dev
+
+
+def true_float32():
+    """A context in which cuDNN runs float32 convolutions (forward and
+    backward) in true float32, as the JAX package's `precision=HIGHEST` does,
+    instead of its TF32 default. float32 matmuls are already full float32
+    unless a caller switched TF32 matmuls on."""
+    cudnn = torch.backends.cudnn
+    return cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
+                       deterministic=cudnn.deterministic, allow_tf32=False)

@@ -8,7 +8,13 @@ Held against the JAX package, not against torch's own BatchNorm2d, so:
   statistics, so real rows come out as from a ragged-size forward;
 - the running statistics are updated (only in `training` mode, with batch
   statistics) with torch's unbiased n/max(n-1, 1) correction and momentum 0.1;
-- the math runs in float32 and the output is cast to the compute dtype.
+- the math runs in float32 and the output is cast to the compute dtype;
+- the output is (x - mean) * (rsqrt(var + eps) * weight) + bias, the form of
+  torch's own BatchNorm. The JAX package's x * inv + (bias - mean * inv)
+  cancels when |mean| >> std and loses low bits that the deep extras layers
+  (batch statistics over 4-36 values per channel at imsize 300) amplify into
+  flipped ReLU gates; with this form the port's step-0 training loss equals
+  the reference run's (tests/test_torch_trajectory.py).
 
 State keys are torch's (`weight`, `bias`, `running_mean`, `running_var`,
 `num_batches_tracked`), so the reference's state_dicts load unchanged. The
@@ -61,6 +67,5 @@ class BatchNorm(nn.Module):
             mean, var = self.running_mean, self.running_var
 
         inv = torch.rsqrt(var + self.eps) * self.weight
-        shift = self.bias - mean * inv
-        out = x.float() * inv[None, :, None, None] + shift[None, :, None, None]
+        out = (x.float() - mean[None, :, None, None]) * inv[None, :, None, None] + self.bias[None, :, None, None]
         return out.to(out_dtype or x.dtype)

@@ -7,6 +7,14 @@
   weight/bias/running_mean/running_var; num_batches_tracked = 0.
 - `ssd_state_dict_from_torch`: a reference-layout state_dict (numpy arrays or
   tensors) -> tensors, after checking every key, shape and dtype.
+- `jax_path` / `to_jax_layout` / `jax_tree`: the key mapping between the
+  port's parameter and buffer names and the JAX package's {"params",
+  "batch_stats"} trees (`features.conv_6_1.weight` <-> ("conv_6_1", "kernel"),
+  HWIO <-> OIHW), so that the trainable/frozen partitions and trained tensors of
+  the two frameworks can be compared leaf by leaf.
+- `adam_state_dict_from_optax`: an optax `ScaleByAdamState` (count, mu, nu as
+  numpy trees of the JAX params layout) -> a `torch.optim.Adam` state_dict, so
+  that both frameworks can start from the same mid-run optimizer state.
 """
 
 from __future__ import annotations
@@ -79,3 +87,55 @@ def ssd_state_dict_from_jax_variables(variables: dict, num_classes: int = 21) ->
         else:
             raise ValueError(f"unknown SSD layer {name!r}")
     return ssd_state_dict_from_torch(sd, num_classes)
+
+
+_BN_LEAVES = {"weight": "scale", "bias": "bias", "running_mean": "mean", "running_var": "var"}
+_CONV_LEAVES = {"weight": "kernel", "bias": "bias"}
+
+
+def jax_path(name: str) -> tuple[str, str]:
+    """Port parameter or statistic name -> (JAX layer, leaf):
+    `features.conv_6_1.weight` -> ("conv_6_1", "kernel"),
+    `features.bn_6_1.running_var` -> ("bn_6_1", "var"),
+    `detectors.det_4_3.bias` -> ("det_4_3", "bias")."""
+    layer, leaf = name.split(".")[-2:]
+    return layer, (_BN_LEAVES if layer.startswith("bn_") else _CONV_LEAVES)[leaf]
+
+
+def to_jax_layout(t) -> np.ndarray:
+    """A port tensor as the JAX package keeps it (conv weights OIHW -> HWIO)."""
+    a = np.asarray(t.detach().cpu().float() if isinstance(t, torch.Tensor) else t)
+    return np.transpose(a, (2, 3, 1, 0)) if a.ndim == 4 else a
+
+
+def from_jax_layout(a) -> torch.Tensor:
+    """A JAX leaf as the port keeps it (conv kernels HWIO -> OIHW), a CPU tensor."""
+    a = np.asarray(a)
+    return torch.from_numpy(np.array(np.transpose(a, (3, 2, 0, 1)) if a.ndim == 4 else a))  # a writable copy
+
+
+def jax_tree(named: dict) -> dict:
+    """{port name: tensor} -> {JAX layer: {leaf: numpy array}} in the JAX layout."""
+    tree = {}
+    for name, t in named.items():
+        layer, leaf = jax_path(name)
+        tree.setdefault(layer, {})[leaf] = to_jax_layout(t)
+    return tree
+
+
+def adam_state_dict_from_optax(count, mu: dict, nu: dict, names: list, param_groups: list) -> dict:
+    """optax `ScaleByAdamState` (`count`, `mu`, `nu` as numpy trees of the JAX
+    params layout) -> a `torch.optim.Adam` state_dict whose parameter i is the
+    port's `names[i]`. `param_groups` is the optimizer's own
+    `state_dict()["param_groups"]`, kept as it is. torch's `exp_avg` and
+    `exp_avg_sq` are optax's uncorrected `mu` and `nu`, and its `step` is
+    `count`, so both frameworks take the next step from the same state."""
+    state = {}
+    for i, name in enumerate(names):
+        layer, leaf = jax_path(name)
+        state[i] = {
+            "step": torch.tensor(float(np.asarray(count)), dtype=torch.float32),
+            "exp_avg": from_jax_layout(mu[layer][leaf]),
+            "exp_avg_sq": from_jax_layout(nu[layer][leaf]),
+        }
+    return {"state": state, "param_groups": param_groups}

@@ -21,11 +21,21 @@ permuted NHWC input already has those strides), which cuDNN runs natively.
 
 Numerics: convs run in `dtype` (float32 or bfloat16), BatchNorm math in
 float32. In float32 the convs run in true f32, as the JAX package's
-`precision=HIGHEST` does: cuDNN's TF32 is switched off for the forward only.
+`precision=HIGHEST` does: the forward switches cuDNN's TF32 off
+(`true_float32`), and `Trainer` takes its gradients inside the same context.
+
+`conv12_kernel=True` runs layer 1_2 through `ops.conv12.conv12`: on the card
+the hand-written kernel csrc/conv12.cu, which sums in float32 and adds the
+float32 bias before its one cast (in bfloat16 that is one rounding fewer than
+the plain path's bias add in bfloat16). None and False keep it on cuDNN, the
+JAX package's default.
+
+`SSD.is_trainable(name)` is the frozen-trunk partition of the reference's
+`train_params()`: extras 6-11 (conv and BN) and the detector heads train.
 
 Not ported here: the TPU lane layouts of the same math (`paired_block1`,
-`conv12_stagger`, `conv12_kernel`, `conv12_pad_pairs`), the int8 paths and
-their calibration, `up_to` and `is_trainable`.
+`conv12_stagger`, `conv12_pad_pairs`), the int8 paths and their calibration,
+and `up_to`.
 """
 
 from __future__ import annotations
@@ -34,7 +44,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from object_detection_torch2_tpu_torch import true_float32
 from object_detection_torch2_tpu_torch.models.bn import BatchNorm
+from object_detection_torch2_tpu_torch.ops.conv12 import conv12
 
 # ImageNet normalization (reference: src/model/vgg16.py:19-20)
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
@@ -114,12 +126,14 @@ class SSD(nn.Module):
     so a seed gives the same model on every device.
     """
 
-    def __init__(self, num_classes: int = 21, dtype: torch.dtype = torch.float32, seed: int = 0):
+    def __init__(self, num_classes: int = 21, dtype: torch.dtype = torch.float32, seed: int = 0,
+                 conv12_kernel: bool | None = None):
         super().__init__()
         if dtype not in DTYPES:
             raise ValueError(f"dtype must be one of {DTYPES}, got {dtype}")
         self.num_classes = num_classes
         self.dtype = dtype
+        self.conv12_kernel = conv12_kernel
         self.features = nn.ModuleDict()
         for suffix, cin, cout, k, stride, pad, _ in LAYER_SPECS:
             self.features[f"conv_{suffix}"] = nn.Conv2d(cin, cout, k, stride=stride, padding=pad)
@@ -139,15 +153,33 @@ class SSD(nn.Module):
                 nn.init.kaiming_normal_(m.weight, mode="fan_out", nonlinearity="relu", generator=g)
                 nn.init.zeros_(m.bias)
 
+    @staticmethod
+    def is_trainable(name: str) -> bool:
+        """Trainable-parameter predicate of `SSD.train_params` (reference:
+        src/model/ssd.py:160-179): extra layers (6_1 onward) and detector
+        heads train; the VGG trunk (blocks 1-5) is frozen. `name` is a
+        parameter or module name (`features.conv_6_1.weight`, `det_4_3`)."""
+        for part in name.split("."):
+            if part.startswith("det_"):
+                return True
+            for prefix in ("conv_", "bn_"):
+                if part.startswith(prefix):
+                    return int(part[len(prefix):].split("_")[0]) >= 6
+        return False
+
     def _conv(self, conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
         return F.conv2d(x, conv.weight.to(self.dtype), conv.bias.to(self.dtype),
                         stride=conv.stride, padding=conv.padding)
 
+    def _conv12(self, conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
+        # the kernel takes channels_last only and never copies; the BN+ReLU
+        # output is channels_last already, so this is a no-op on the main path
+        x = x.contiguous(memory_format=torch.channels_last)
+        return conv12(x, conv.weight.to(self.dtype), conv.bias, out_dtype=self.dtype)
+
     def forward(self, x: torch.Tensor, use_batch_stats: bool = True,
                 batch_mask: torch.Tensor | None = None) -> torch.Tensor:
-        cudnn = torch.backends.cudnn
-        with cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
-                         deterministic=cudnn.deterministic, allow_tf32=False):
+        with true_float32():
             return self._forward(x, use_batch_stats, batch_mask)
 
     def _forward(self, x, use_batch_stats, batch_mask):
@@ -157,7 +189,8 @@ class SSD(nn.Module):
         x = normalize_image(x).permute(0, 3, 1, 2).to(self.dtype)
         feature_maps = {}
         for suffix, _, _, _, _, _, pool in LAYER_SPECS:
-            x = self._conv(self.features[f"conv_{suffix}"], x)
+            conv = self._conv12 if suffix == "1_2" and self.conv12_kernel else self._conv
+            x = conv(self.features[f"conv_{suffix}"], x)
             x = self.features[f"bn_{suffix}"](x, use_batch_stats, batch_mask, out_dtype=self.dtype)
             x = F.relu(x)
             if suffix in taps:

@@ -3,13 +3,18 @@
 Each source is compiled by nvcc into its own shared library with a plain C
 interface, loaded with ctypes:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -fmad=false
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 <the source's own flags>
          -shared -Xcompiler -fPIC -o <build>/<hash>/lib<name>.so csrc/<name>.cu
 
+A source's own flags are in `SOURCE_FLAGS`: the NMS sweep is built with
+`-fmad=false` so that it rounds as its plain version does; conv_1_2 is built
+with FMA contraction, as a convolution's sum should be.
+
 The output lands in `object_detection_torch2_tpu_torch/_build/`, in a
-directory keyed by a hash of the sources and the flags, so an edited source is
-rebuilt and an unchanged one is not. `build_all()` starts one nvcc per source,
-all at once. A failed build raises with nvcc's stderr. Nothing is downloaded.
+directory keyed by a hash of that source, the shared headers and its flags, so
+an edited source is rebuilt and an unchanged one is not. `build_all()` starts
+one nvcc per source, all at once. A failed build raises with nvcc's stderr.
+Nothing is downloaded.
 """
 
 from __future__ import annotations
@@ -27,19 +32,27 @@ CSRC = PACKAGE_DIR / "csrc"
 BUILD_ROOT = PACKAGE_DIR / "_build"
 DEFAULT_CUDA_HOME = "/usr/local/cuda"
 
-# -fmad=false: no FMA contraction, so the kernels round as their plain
-# PyTorch versions do (IEEE division is nvcc's default without --use_fast_math)
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-fmad=false",
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# -fmad=false: no FMA contraction, so the NMS sweep rounds as its plain
+# PyTorch version does, bit for bit (IEEE division is nvcc's default without
+# --use_fast_math)
+SOURCE_FLAGS = {"nms_keep_sorted": ("-fmad=false",)}
 
 
 def sources() -> list[Path]:
     return sorted(CSRC.glob("*.cu"))
 
 
-def build_dir() -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sorted(CSRC.glob("*.cu*")) + sorted(CSRC.glob("*.h")):
+def flags(name: str) -> tuple[str, ...]:
+    return NVCC_FLAGS + SOURCE_FLAGS.get(name, ())
+
+
+def build_dir(name: str) -> Path:
+    """The build directory of csrc/<name>.cu: keyed by its flags, its own
+    bytes and those of the shared headers."""
+    h = hashlib.sha256(" ".join(flags(name)).encode())
+    for src in [CSRC / f"{name}.cu"] + sorted(CSRC.glob("*.cuh")) + sorted(CSRC.glob("*.h")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_ROOT / h.hexdigest()[:16]
@@ -57,11 +70,11 @@ def find_nvcc() -> str:
 
 
 def nvcc_command(nvcc: str, src: Path, out: Path) -> list[str]:
-    return [nvcc, *NVCC_FLAGS, "-o", str(out), str(src)]
+    return [nvcc, *flags(src.stem), "-o", str(out), str(src)]
 
 
 def library_path(name: str) -> Path:
-    return build_dir() / f"lib{name}.so"
+    return build_dir(name) / f"lib{name}.so"
 
 
 def build_all() -> dict[str, str]:
@@ -72,10 +85,10 @@ def build_all() -> dict[str, str]:
     if not todo:
         return {}
     nvcc = find_nvcc()
-    out_dir = build_dir()
-    out_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
     for src in todo:
+        out_dir = build_dir(src.stem)
+        out_dir.mkdir(parents=True, exist_ok=True)
         tmp = out_dir / f"lib{src.stem}.so.{os.getpid()}.tmp"
         procs[src.stem] = (tmp, subprocess.Popen(nvcc_command(nvcc, src, tmp), stdout=subprocess.PIPE,
                                                  stderr=subprocess.PIPE, text=True))

@@ -1,0 +1,106 @@
+"""Train and eval steps of the SSD detector with the MultiBox loss
+(counterpart of object_detection_torch2_tpu/train/trainer.py, `loss_kind="multibox"`).
+
+A train step: uint8 or float images -> x(1/255) -> SSD forward (the frozen trunk
+keeps no autograd graph; BatchNorm updates its running statistics) -> MultiBox
+loss -> gradients of the trainable parameters only -> Adam step. PyTorch runs
+eagerly, so there is no compiled program per step: `train_steps` is a Python
+loop over K single steps and computes the same sequence.
+
+Validation parity: the reference's validation pass runs under `torch.no_grad()`
+but never calls `net.eval()` (reference: src/train.py:127-139), so BatchNorm
+uses batch statistics AND keeps updating its running statistics (quirk Q9).
+`eval_step` does exactly that: the model stays in training mode.
+
+float32 convolutions run in true float32 in the forward and the backward
+(`true_float32`), as the JAX package's `precision=HIGHEST` does.
+
+Not ported yet (they raise NotImplementedError; ROADMAP.md Queue 1): the fused
+augment chain (`augment`, item B), the classification loss (`cross_entropy`,
+item E), the int8 trunk (`quant`, item F) and data parallelism (`mesh`,
+item G).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from object_detection_torch2_tpu_torch import resolve_device, true_float32
+from object_detection_torch2_tpu_torch.core.multibox import multibox_loss
+from object_detection_torch2_tpu_torch.data.augment import to_tensor_batch
+from object_detection_torch2_tpu_torch.train.state import TrainState
+
+
+class Trainer:
+    """Train and eval steps for one SSD and its anchor table.
+
+    device=None means the CUDA card, and raises without one; pass
+    device="cpu" to run on the CPU. The model is moved to `device` in place.
+    A TrainState from `init_state` is updated in place by every step.
+    """
+
+    def __init__(self, model, loss_kind: str = "multibox", default_boxes=None, alpha: float = 1.0,
+                 mesh=None, use_batch_stats: bool = True, augment=False, quant=None, device=None):
+        if loss_kind == "cross_entropy":
+            raise NotImplementedError("the classification loss is not ported yet (ROADMAP.md Queue 1 item E)")
+        if loss_kind != "multibox":
+            raise ValueError(f"unknown loss_kind {loss_kind!r}")
+        if mesh is not None:
+            raise NotImplementedError("data parallelism is not ported yet (ROADMAP.md Queue 1 item G)")
+        if augment:
+            raise NotImplementedError("the fused augment chain is not ported yet (ROADMAP.md Queue 1 item B)")
+        if quant is not None:
+            raise NotImplementedError("the int8 trunk is not ported yet (ROADMAP.md Queue 1 item F)")
+        if default_boxes is None:
+            raise ValueError("multibox loss requires default_boxes")
+        self.device = resolve_device(device)
+        self.model = model.to(self.device)
+        self.default_boxes = torch.tensor(np.asarray(default_boxes), dtype=torch.float32, device=self.device)
+        self.alpha = alpha
+        self.use_batch_stats = use_batch_stats
+
+    def init_state(self, make_optimizer, is_trainable=None, state_dict: dict | None = None) -> TrainState:
+        """Load `state_dict` into the model if given, then partition its
+        parameters (default: `SSD.is_trainable`) and build the optimizer over
+        the trainable ones, e.g. `lambda ps: adam_torch(ps, schedule, wd)`."""
+        if state_dict is not None:
+            self.model.load_state_dict(state_dict)
+        return TrainState.create(self.model, make_optimizer, is_trainable)
+
+    def _inputs(self, images, targets):
+        """Host arrays or tensors -> float32 images and targets on the device."""
+        images, targets = (torch.as_tensor(a).to(self.device) for a in (images, targets))
+        if images.dtype == torch.uint8:
+            images = to_tensor_batch(images)
+        return images, targets.to(torch.float32)
+
+    def _loss(self, outputs, targets):
+        return multibox_loss(outputs, targets, self.default_boxes, self.alpha)
+
+    def train_step(self, state: TrainState, images, targets) -> torch.Tensor:
+        """One step on images (N, H, W, 3) uint8 or float in [0, 1] and targets
+        (N, G, 4 + C). Updates `state` in place; returns the loss (a 0-d
+        tensor on the device, computed before the update)."""
+        images, targets = self._inputs(images, targets)
+        state.model.train()
+        params = list(state.trainable.values())
+        with true_float32():
+            loss = self._loss(state.model(images, use_batch_stats=self.use_batch_stats), targets)
+            # zeros, not None, for a parameter the loss does not reach
+            grads = torch.autograd.grad(loss, params, materialize_grads=True)
+        state.apply_gradients(grads)
+        return loss.detach()
+
+    def train_steps(self, state: TrainState, images_k, targets_k) -> torch.Tensor:
+        """K steps over (K, N, ...) stacks; returns the (K,) losses. The same
+        sequence as K calls of `train_step`."""
+        return torch.stack([self.train_step(state, images_k[i], targets_k[i]) for i in range(len(images_k))])
+
+    @torch.no_grad()
+    def eval_step(self, state: TrainState, images, targets) -> torch.Tensor:
+        """The loss under no_grad with BatchNorm in training mode: batch
+        statistics, and the running statistics updated (quirk Q9)."""
+        images, targets = self._inputs(images, targets)
+        state.model.train()
+        return self._loss(state.model(images, use_batch_stats=self.use_batch_stats), targets)

@@ -9,7 +9,10 @@ import numpy as np
 import pytest
 import torch
 
-from object_detection_torch2_tpu_torch.ops import _build, nms, nms_cuda
+from object_detection_torch2_tpu_torch import true_float32
+from object_detection_torch2_tpu_torch.models.ssd import SSD
+from object_detection_torch2_tpu_torch.ops import _build, conv12_cuda, nms, nms_cuda
+from object_detection_torch2_tpu_torch.ops.conv12 import conv12, conv12_plain
 
 pytestmark = pytest.mark.cuda
 
@@ -90,3 +93,85 @@ def test_nms_keep_mask_on_card_uses_kernel_at_every_tier(card):
         assert nms_cuda.launches == before + 1
         want = nms.nms_keep_mask(boxes, scores, sweep=nms._blocked_keep_sorted)
         assert torch.equal(got, want)
+
+
+def _conv12_case(n, h, w, dtype, device, seed=0):
+    """Post-ReLU-scale channels_last input, kaiming fan_out weights, small bias."""
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(np.maximum(rng.standard_normal((n, h, w, 64)), 0).astype(np.float32))
+    wt = torch.from_numpy((rng.standard_normal((64, 64, 3, 3)) * np.sqrt(2.0 / 576)).astype(np.float32))
+    b = torch.from_numpy((rng.standard_normal(64) * 0.1).astype(np.float32))
+    return x.permute(0, 3, 1, 2).to(device, dtype), wt.to(device, dtype), b.to(device)
+
+
+def conv12_within_tolerance(got, want):
+    """float32: max |got - want| <= 1e-4 * max |want| (sums of 576 products in
+    another order). bfloat16: each element within 2 bfloat16 ulps of want's
+    magnitude, or within 1e-5 * max |want| near zero, where the float32 sum
+    order alone moves a value by more ulps of itself than it has."""
+    g, w = got.float(), want.float()
+    d = (g - w).abs()
+    scale = float(w.abs().max())
+    if got.dtype == torch.float32:
+        return float(d.max()) <= 1e-4 * scale
+    ulp = torch.exp2(torch.floor(torch.log2(w.abs().clamp_min(1e-30))) - 7)
+    return bool((d <= torch.maximum(2 * ulp, torch.full_like(ulp, 1e-5 * scale))).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,h,w", [(1, 1, 1), (2, 16, 16), (3, 38, 50), (1, 17, 33), (4, 300, 300)])
+def test_conv12_kernel_equals_plain(card, dtype, n, h, w):
+    x, wt, b = _conv12_case(n, h, w, dtype, card, seed=h * w)
+    before = conv12_cuda.launches
+    got = conv12_cuda.conv12_cuda(x, wt, b)
+    torch.cuda.synchronize()
+    assert conv12_cuda.launches == before + 1
+    want = conv12_plain(x, wt, b)
+    assert got.dtype == dtype and got.shape == want.shape
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    assert conv12_within_tolerance(got, want)
+
+
+def test_conv12_backward_equals_plain_autograd(card):
+    """The backward of sum(y * r) for a fixed r, so that both backwards get the
+    same cotangent; both in true float32 (cuDNN's TF32 is on by default, and
+    a backward runs outside the forward's context)."""
+    x, wt, b = _conv12_case(2, 38, 50, torch.float32, card, seed=1)
+    r = torch.from_numpy(np.random.default_rng(2).standard_normal(x.shape).astype(np.float32)).to(card)
+    grads = []
+    for fn in (conv12, conv12_plain):
+        xs, ws, bs = (t.clone().requires_grad_(True) for t in (x, wt, b))
+        with true_float32():
+            (fn(xs, ws, bs) * r).sum().backward()
+        grads.append((xs.grad, ws.grad, bs.grad))
+    for got, want in zip(*grads):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+def test_conv12_wrapper_checks(card):
+    x, wt, b = _conv12_case(2, 8, 8, torch.float32, card)
+    before = conv12_cuda.launches
+    with pytest.raises(TypeError):
+        conv12_cuda.conv12_cuda(x.half(), wt.half(), b)
+    with pytest.raises(TypeError):
+        conv12_cuda.conv12_cuda(x, wt, b, out_dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        conv12_cuda.conv12_cuda(x.contiguous(), wt, b)  # NCHW-contiguous, not channels_last
+    with pytest.raises(ValueError):
+        conv12_cuda.conv12_cuda(x[:, :32].contiguous(memory_format=torch.channels_last), wt[:32, :32], b[:32])
+    with pytest.raises(ValueError):
+        conv12_cuda.conv12_cuda(x.cpu(), wt.cpu(), b.cpu())
+    assert conv12_cuda.launches == before
+
+
+def test_ssd_with_conv12_kernel_launches_it_once_per_forward(card):
+    model = SSD(num_classes=21, conv12_kernel=True).to(card)
+    x = torch.rand((2, 264, 264, 3), device=card)
+    before = conv12_cuda.launches
+    with torch.no_grad():
+        got = model.eval()(x, use_batch_stats=True)
+    assert conv12_cuda.launches == before + 1
+    plain = SSD(num_classes=21).to(card)
+    with torch.no_grad():
+        want = plain.eval()(x, use_batch_stats=True)
+    torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-3)

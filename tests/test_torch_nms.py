@@ -192,12 +192,21 @@ def test_kernel_wrapper_refuses_cpu_tensors():
 
 
 def test_build_flags_and_missing_nvcc(monkeypatch, tmp_path):
-    """The kernel is built for sm_90a without FMA contraction or fast math,
-    and a machine without nvcc gets an error that says so."""
-    assert [s.name for s in _build.sources()] == ["nms_keep_sorted.cu"]
-    cmd = _build.nvcc_command("nvcc", _build.sources()[0], tmp_path / "lib.so")
-    assert "arch=compute_90a,code=sm_90a" in cmd and "-fmad=false" in cmd
-    assert "--use_fast_math" not in cmd
+    """The NMS kernel is built for sm_90a without FMA contraction or fast
+    math, conv_1_2 with FMA contraction; each source has its own build
+    directory, keyed by its flags; and a machine without nvcc gets an error
+    that says so."""
+    srcs = {s.name: s for s in _build.sources()}
+    assert sorted(srcs) == ["conv12.cu", "nms_keep_sorted.cu"]
+    nms_cmd = _build.nvcc_command("nvcc", srcs["nms_keep_sorted.cu"], tmp_path / "lib.so")
+    conv_cmd = _build.nvcc_command("nvcc", srcs["conv12.cu"], tmp_path / "lib.so")
+    for cmd in (nms_cmd, conv_cmd):
+        assert "arch=compute_90a,code=sm_90a" in cmd and "--use_fast_math" not in cmd
+    assert "-fmad=false" in nms_cmd and "-fmad=false" not in conv_cmd
+    assert _build.build_dir("nms_keep_sorted") != _build.build_dir("conv12")
+    before = _build.build_dir("conv12")
+    monkeypatch.setitem(_build.SOURCE_FLAGS, "conv12", ("-DEXTRA",))
+    assert _build.build_dir("conv12") != before
     monkeypatch.setattr(_build, "BUILD_ROOT", tmp_path)
     monkeypatch.setattr(_build, "DEFAULT_CUDA_HOME", str(tmp_path))
     monkeypatch.setattr(_build.shutil, "which", lambda name: None)
