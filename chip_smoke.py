@@ -6,8 +6,10 @@ and checks them.
 Phases (any failure raises and exits non-zero; nothing is caught):
 1. device: the card's name and power limit (nvidia-smi) — no card, no run;
 2. build: the CUDA kernels from object_detection_torch2_tpu_torch/csrc/, one
-   nvcc per source, all started together, with nvcc's register and
-   shared-memory report;
+   nvcc per source, all started together, with nvcc's register, spill and
+   shared-memory report and each library's count of tensor-core
+   instructions (HMMA, HGMMA) in cuobjdump -sass; the bfloat16 conv_1_2
+   library must have some;
 3. reference: the port's SSD forward on the card against the reference
    forward golden (tests/goldens/ssd_forward_pinned.npz) at its pinned
    tolerances, in float32 (which also proves cuDNN's TF32 is off) and bfloat16;
@@ -20,9 +22,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    just after; detections must be well-formed; the post-processing of one
    batch is redone with the plain sweep on the same forward output and must
    give identical packed rows; then img/s at batch 32;
-6. conv12 kernel vs plain: the conv_1_2 kernel against `conv12_plain` on the
-   card at the training path's shape (32, 64, 300, 300) channels_last and at a
-   ragged (3, 64, 38, 50), float32 and bfloat16, from seeded numpy inputs
+6. conv12 kernels vs plain: the conv_1_2 kernels (float32: csrc/conv12.cu on
+   the CUDA cores; bfloat16: csrc/conv12_bf16.cu on the tensor cores) against
+   `conv12_plain` on the card at the training path's shape (32, 64, 300, 300)
+   channels_last and at a ragged (3, 64, 38, 50), from seeded numpy inputs
    (post-ReLU scale, kaiming fan_out weights). Tolerances: float32
    max |kernel - plain| <= 1e-4 * max |plain|; bfloat16 each element within
    2 bfloat16 ulps of the plain value's magnitude, or 1e-5 * max |plain| near
@@ -41,6 +44,7 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    finite, the trunk bit-unchanged, every running statistic moved, an
    all-void batch's loss exactly 0.0, and one step on the kernel path against
    the same step with conv_1_2 on cuDNN (tolerances in `compare_conv12_paths`).
+   Each dtype's forwards must have run that dtype's conv_1_2 kernel.
    ms per step (CUDA events) and img/s, and the step split into forward,
    loss, backward and Adam;
 9. the kernels line (JSON), then the last line
@@ -665,6 +669,7 @@ def phase_training(card: str) -> dict:
         torch.cuda.reset_peak_memory_stats()
 
         conv12_cuda.launches = 0
+        conv12_cuda.kernel_launches.update(dict.fromkeys(conv12_cuda.kernel_launches, 0))
         losses, step_ms = [], []
         for i in range(TRAIN_STEPS):
             e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -679,8 +684,9 @@ def phase_training(card: str) -> dict:
         eval_loss = float(trainer.eval_step(state, images[-1], targets[-1]))
         torch.cuda.synchronize()
         launches = conv12_cuda.launches
-        if launches != n_batches:
-            raise AssertionError(f"{n_batches} training forwards launched the conv12 kernel {launches} times")
+        by_kernel = dict(conv12_cuda.kernel_launches)
+        if launches != n_batches or by_kernel[conv12_cuda.KERNEL_OF[dtype]] != n_batches:
+            raise AssertionError(f"{n_batches} training forwards launched the conv12 kernels {by_kernel}")
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
         if not np.isfinite(losses + k_losses + [eval_loss]).all():
@@ -695,8 +701,8 @@ def phase_training(card: str) -> dict:
         paths = compare_conv12_paths(start_sd, dtype, df, images[0], targets[0])
         split = step_breakdown(state, trainer.default_boxes, images[0], targets[0])
         ms = statistics.median(step_ms[1:])
-        res[name] = {"conv12_launches": launches, "losses": losses, "train_steps_losses": k_losses,
-                     "eval_loss": eval_loss, "step_ms": step_ms, "median_step_ms": ms, "img_per_s": BATCH / ms * 1e3,
+        res[name] = {"conv12_launches": launches, "conv12_kernel_launches": by_kernel, "losses": losses,
+                     "train_steps_losses": k_losses, "eval_loss": eval_loss, "step_ms": step_ms, "median_step_ms": ms, "img_per_s": BATCH / ms * 1e3,
                      "peak_gb": peak_gb, "split_ms": split, "kernel_vs_cudnn_step": paths}
         print(f"training main path {name} bs{BATCH} G{G_PAD}: losses {losses[0]:.4f} -> {k_losses[-1]:.4f}, eval "
               f"{eval_loss:.4f}, all-void 0.0, trunk bit-unchanged, conv12 launches {launches} for {n_batches} "
@@ -709,21 +715,22 @@ def phase_training(card: str) -> dict:
 
 
 def conv12_entry(conv: dict, training: dict) -> dict:
-    """The kernels-line entry of conv12: float32 at the training path's shape
-    in the top-level keys, bfloat16 beside them; launches from the training
-    main path (both dtypes)."""
-    def keys(r, launches):
-        return {"launches": launches, "max_abs_err": r["max_abs_err"], "within_tolerance": r["within_tolerance"],
+    """The kernels-line entry of conv12: the float32 kernel at the training
+    path's shape in the top-level keys, the bfloat16 kernel (its own source)
+    beside them; each one's launches from the training main path."""
+    def keys(r, dtype):
+        name = "conv12" if dtype == "float32" else "conv12_bf16"
+        return {"route": "cuda", "source": f"object_detection_torch2_tpu_torch/csrc/{name}.cu",
+                "replaces": "object_detection_torch2_tpu/ops/conv12_pallas.py:103",  # _kernel
+                "launches": training[dtype]["conv12_kernel_launches"][name],
+                "max_abs_err": r["max_abs_err"], "within_tolerance": r["within_tolerance"],
                 "ms": r["kernel_ms"], "kernel_ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
                 "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
                 "bytes": r["bytes"], "operations": r["operations"]}
 
-    f32, bf16 = conv["float32"], conv["bfloat16"]
-    entry = {"name": "conv12", "route": "cuda", "source": "object_detection_torch2_tpu_torch/csrc/conv12.cu",
-             "replaces": "object_detection_torch2_tpu/ops/conv12_pallas.py:103",  # _kernel
-             "shape": f32["shape"], "dtype": "float32"}
-    entry.update(keys(f32, training["float32"]["conv12_launches"] + training["bfloat16"]["conv12_launches"]))
-    entry["bfloat16"] = keys(bf16, training["bfloat16"]["conv12_launches"])
+    entry = {"name": "conv12", **keys(conv["float32"], "float32"), "shape": conv["float32"]["shape"],
+             "dtype": "float32"}
+    entry["bfloat16"] = keys(conv["bfloat16"], "bfloat16")
     entry["library"] = "F.conv2d (cuDNN; TF32 off in float32)"
     return entry
 
@@ -751,8 +758,13 @@ def main(argv=None) -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
+    sass = {name: _build.tensor_core_instructions(name) for name in [s.stem for s in _build.sources()]}
+    for name, counts in sass.items():
+        print(f"  {name}: tensor-core instructions in SASS {counts}")
+    if sum(sass["conv12_bf16"].values()) == 0:
+        raise AssertionError("csrc/conv12_bf16.cu's machine code has no tensor-core instruction")
 
-    results = {"card": card, "reference": phase_reference(card)}
+    results = {"card": card, "sass_tensor_core": sass, "reference": phase_reference(card)}
     results["kernel_vs_plain"] = phase_kernel_vs_plain(card)
     main_path = phase_main_path(card)
     entries = [kernel_entry(main_path, card)]

@@ -1,0 +1,126 @@
+"""Times the port's two kernels on one CUDA card, for comparing two versions
+of the package in one call:
+
+    python3 kernel_times.py [--root DIR] [--label NAME]
+
+imports `object_detection_torch2_tpu_torch` from DIR (default: this
+checkout), and prints one JSON line with the card's name and power limit and,
+in ms (CUDA events, as chip_smoke.py times them):
+- `nms_keep_sorted_cuda` on chip_smoke.py's seeded clustered boxes at batch 32
+  and widths 128, 1024 and 8732, dense and sparse, and on the serving main
+  path's own sweep inputs (batch 0 of 70 seeded uint8 images through
+  SSD(seed=0) in float32 at imsize 300);
+- `conv12_cuda` at the training path's (32, 64, 300, 300) in float32 and
+  bfloat16.
+
+With --profile it also prints, from a torch.profiler trace of one call
+each, the device time of every CUDA kernel that the NMS sweep at the main
+path's inputs and conv_1_2 in bfloat16 launch.
+
+Run versions in separate processes in turn (A, B, B, A) and compare within
+one call. Imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+
+import chip_smoke as cs
+
+
+def nms_times() -> dict:
+    from object_detection_torch2_tpu_torch.ops import nms_cuda
+
+    rng = np.random.default_rng(1234)
+    out = {}
+    for p in (128, 1024, 8732):
+        for dense in (True, False):
+            sb, sv = cs.clustered_sorted(rng, cs.BATCH, p, dense)
+            out[f"nms_p{p}_{'dense' if dense else 'sparse'}"] = cs.time_ms(
+                lambda: nms_cuda.nms_keep_sorted_cuda(sb, sv, cs.IOU_THRESH), reps=20)
+    return out
+
+
+def main_path_sweep_inputs():
+    from object_detection_torch2_tpu_torch.core.anchors import default_boxes, feature_grids_for
+    from object_detection_torch2_tpu_torch.data.augment import to_tensor_batch
+    from object_detection_torch2_tpu_torch.infer import postprocess
+    from object_detection_torch2_tpu_torch.models.ssd import SSD
+    from object_detection_torch2_tpu_torch.ops import nms
+
+    images = np.random.default_rng(0).integers(0, 256, (cs.N_IMAGES, cs.IMSIZE, cs.IMSIZE, 3), dtype=np.uint8)
+    df = torch.from_numpy(default_boxes(feature_grids_for(cs.IMSIZE)).copy()).to(cs.DEVICE)
+    model = SSD(num_classes=21, dtype=torch.float32, seed=0).to(cs.DEVICE).eval()
+    captured = {}
+
+    def capture(b, v, t):
+        captured["sb"], captured["sv"] = b.clone(), v.clone()
+        return nms._blocked_keep_sorted(b, v, t)
+
+    with torch.inference_mode():
+        x = to_tensor_batch(torch.from_numpy(images[:cs.BATCH]).to(cs.DEVICE))
+        mask = torch.ones(cs.BATCH, device=cs.DEVICE)
+        postprocess(model(x, use_batch_stats=True, batch_mask=mask), df, mask, sweep=capture)
+    return captured["sb"], captured["sv"]
+
+
+def kernel_device_ms(fn) -> dict:
+    """{kernel name: device ms} of one call of `fn` (after a warm-up), from a
+    torch.profiler trace."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        t = getattr(ev, "device_time_total", None)
+        if t is None:
+            t = getattr(ev, "cuda_time_total", 0.0)
+        if t and ev.key.startswith(("nms_", "conv12", "void", "(anonymous")):
+            out[ev.key[:80]] = t / 1e3
+    return out
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--root", type=Path, default=Path(__file__).resolve().parent)
+    ap.add_argument("--label", default="")
+    ap.add_argument("--profile", action="store_true")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("kernel_times: no CUDA device is available")
+    sys.path.insert(0, str(args.root.resolve()))
+    import object_detection_torch2_tpu_torch as pkg
+    from object_detection_torch2_tpu_torch.ops import conv12_cuda, nms_cuda
+
+    res = {"label": args.label, "package": str(Path(pkg.__file__).parent), "card": cs.card_line()}
+    res.update(nms_times())
+    sb, sv = main_path_sweep_inputs()
+    res["nms_main_path"] = cs.time_ms(lambda: nms_cuda.nms_keep_sorted_cuda(sb, sv, cs.IOU_THRESH), reps=20)
+    for seed, dtype in enumerate((torch.float32, torch.bfloat16)):
+        x, w, b = cs.conv12_case(cs.CONV12_SHAPE, dtype, seed)
+        res[f"conv12_{str(dtype).replace('torch.', '')}"] = cs.time_ms(lambda: conv12_cuda.conv12_cuda(x, w, b), reps=5)
+    if args.profile:
+        res["profile_nms_main_path"] = kernel_device_ms(lambda: nms_cuda.nms_keep_sorted_cuda(sb, sv, cs.IOU_THRESH))
+        rng = np.random.default_rng(1234)
+        for p in (128, 1024):
+            for case in ("dense", "sparse"):
+                b4, v4 = cs.clustered_sorted(rng, cs.BATCH, p, case == "dense")
+                res[f"profile_nms_p{p}_{case}"] = kernel_device_ms(
+                    lambda: nms_cuda.nms_keep_sorted_cuda(b4, v4, cs.IOU_THRESH))
+        res["profile_conv12_bfloat16"] = kernel_device_ms(lambda: conv12_cuda.conv12_cuda(x, w, b))
+    print(json.dumps(res))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,24 +1,23 @@
-// conv_1_2 forward for Hopper: 3x3, stride 1, zero pad 1, 64 -> 64 channels, plus bias.
+// conv_1_2 forward in float32 for Hopper: 3x3, stride 1, zero pad 1, 64 -> 64
+// channels, plus bias.
 //
-// Replaces the TPU kernel object_detection_torch2_tpu/ops/conv12_pallas.py::_kernel
-// (reached through _conv12_pallas and conv12_paired). It computes what that
-// kernel and the plain version ops/conv12.py::conv12_plain of this package
-// compute, on channels_last (NHWC in memory) tensors:
+// Replaces, for float32 input, the TPU kernel
+// object_detection_torch2_tpu/ops/conv12_pallas.py::_kernel (reached through
+// _conv12_pallas and conv12_paired); bfloat16 input goes to the tensor-core
+// kernel csrc/conv12_bf16.cu. It computes what ops/conv12.py::conv12_plain
+// computes, on channels_last (NHWC in memory) tensors:
 //
-//   y[n, co, h, w] = cast(b[co] + sum_{ky,kx,ci} x[n, ci, h+ky-1, w+kx-1] * w[co, ci, ky, kx])
+//   y[n, co, h, w] = b[co] + sum_{ky,kx,ci} x[n, ci, h+ky-1, w+kx-1] * w[co, ci, ky, kx]
 //
-// with the sum and the bias in float32 for float32 and bfloat16 inputs, and one
-// rounding to the output type at the store. The TPU's paired-x layout, its
+// with the sum and the bias in float32. The TPU's paired-x layout, its
 // host-side edge operand and its weight packing are lane tricks of the TPU and
 // are not carried over.
 //
 // What bounds it on this card, at the training path's shape (N 32, 300 x 300):
-// 2*N*H*W*9*64*64 = 212.3 GFLOP against 2 x 184.3 M elements moved. In float32
-// the work runs on the CUDA cores (the TF32 tensor-core path would lose the
-// parity the float32 forward is held to): 3.17 ms at 67 TFLOP/s, while the
-// bytes (1.47 GB) take 0.44 ms, so it is bound by operations. In bfloat16 the
-// bound is 0.22 ms (bytes and tensor-core operations about even), which this
-// CUDA-core kernel does not approach.
+// 2*N*H*W*9*64*64 = 212.3 GFLOP against 2 x 184.3 M elements moved. The work
+// runs on the CUDA cores (the TF32 tensor-core path would lose the parity the
+// float32 forward is held to): 3.17 ms at 67 TFLOP/s, while the bytes
+// (1.47 GB) take 0.44 ms, so it is bound by operations.
 //
 // Design (a simple, correct first kernel; an implicit GEMM on the CUDA cores):
 // - One block of 256 threads computes a 16 x 16 tile of output pixels for all
@@ -36,10 +35,8 @@
 //   accumulators in registers.
 // - The ragged edge (300 is not a multiple of 16) is masked at the load (zero)
 //   and at the store (skipped).
-// Later work (not here): bfloat16 on the tensor cores (mma.sync / wgmma),
-// TMA-staged tiles and a persistent grid.
+// Later work (not here): double-buffered staging.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -58,19 +55,10 @@ constexpr int S_W = 9 * CK * C;     // staged weights, [tap][ci][co] float32
 constexpr size_t SMEM_BYTES = (S_IN + S_W) * sizeof(float);
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 
-// four float32 values to 4 consecutive outputs, rounded once
+// four float32 values to 4 consecutive outputs
 __device__ __forceinline__ void store4(float* dst, float a, float b, float c, float d) {
   *reinterpret_cast<float4*>(dst) = make_float4(a, b, c, d);
-}
-__device__ __forceinline__ void store4(__nv_bfloat16* dst, float a, float b, float c, float d) {
-  __nv_bfloat162 lo = __floats2bfloat162_rn(a, b);
-  __nv_bfloat162 hi = __floats2bfloat162_rn(c, d);
-  uint2 v;
-  v.x = *reinterpret_cast<uint32_t*>(&lo);
-  v.y = *reinterpret_cast<uint32_t*>(&hi);
-  *reinterpret_cast<uint2*>(dst) = v;
 }
 
 template <typename T>
@@ -178,13 +166,12 @@ int launch(const void* x, const float* wpk, const float* bias, void* y, int n, i
 
 }  // namespace
 
-// x, y: (n, 64, h, w) channels_last, float32 (bf16 == 0) or bfloat16 (bf16 != 0);
-// wpk: (3, 3, 64 ci, 64 co) float32; bias: (64,) float32. Launches on `stream`,
-// does not synchronise, and returns the launch's cudaGetLastError() (0 on success).
+// x, y: (n, 64, h, w) channels_last float32; wpk: (3, 3, 64 ci, 64 co)
+// float32; bias: (64,) float32. Launches on `stream`, does not synchronise,
+// and returns the launch's cudaGetLastError() (0 on success).
 extern "C" int conv12_forward(const void* x, const float* wpk, const float* bias, void* y, int n, int h,
-                              int w, int bf16, cudaStream_t stream) {
+                              int w, cudaStream_t stream) {
   if (n <= 0 || h <= 0 || w <= 0) return 0;
   if (n > 65535 || h > 65535 * TH) return static_cast<int>(cudaErrorInvalidConfiguration);
-  return bf16 ? launch<__nv_bfloat16>(x, wpk, bias, y, n, h, w, stream)
-              : launch<float>(x, wpk, bias, y, n, h, w, stream);
+  return launch<float>(x, wpk, bias, y, n, h, w, stream);
 }

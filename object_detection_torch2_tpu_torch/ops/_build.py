@@ -7,8 +7,10 @@ interface, loaded with ctypes:
          -shared -Xcompiler -fPIC -o <build>/<hash>/lib<name>.so csrc/<name>.cu
 
 A source's own flags are in `SOURCE_FLAGS`: the NMS sweep is built with
-`-fmad=false` so that it rounds as its plain version does; conv_1_2 is built
-with FMA contraction, as a convolution's sum should be.
+`-fmad=false` so that it rounds as its plain version does; the two conv_1_2
+kernels are built with FMA contraction, as a convolution's sum should be.
+`tensor_core_instructions` counts the tensor-core instructions in a built
+library's machine code (cuobjdump -sass).
 
 The output lands in `object_detection_torch2_tpu_torch/_build/`, in a
 directory keyed by a hash of that source, the shared headers and its flags, so
@@ -23,6 +25,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -58,13 +61,13 @@ def build_dir(name: str) -> Path:
     return BUILD_ROOT / h.hexdigest()[:16]
 
 
-def find_nvcc() -> str:
+def find_tool(name: str) -> str:
     for cand in (os.environ.get("CUDA_HOME"), os.environ.get("CUDA_PATH"), DEFAULT_CUDA_HOME):
-        if cand and (Path(cand) / "bin" / "nvcc").is_file():
-            return str(Path(cand) / "bin" / "nvcc")
-    found = shutil.which("nvcc")
+        if cand and (Path(cand) / "bin" / name).is_file():
+            return str(Path(cand) / "bin" / name)
+    found = shutil.which(name)
     if found is None:
-        raise RuntimeError(f"nvcc not found (looked in $CUDA_HOME, $CUDA_PATH, {DEFAULT_CUDA_HOME} and $PATH); "
+        raise RuntimeError(f"{name} not found (looked in $CUDA_HOME, $CUDA_PATH, {DEFAULT_CUDA_HOME} and $PATH); "
                            "the CUDA kernels are built on a machine with the CUDA toolkit")
     return found
 
@@ -84,7 +87,7 @@ def build_all() -> dict[str, str]:
     todo = [s for s in sources() if not library_path(s.stem).is_file()]
     if not todo:
         return {}
-    nvcc = find_nvcc()
+    nvcc = find_tool("nvcc")
     procs = {}
     for src in todo:
         out_dir = build_dir(src.stem)
@@ -114,3 +117,25 @@ def load(name: str) -> ctypes.CDLL:
     if not library_path(name).is_file():
         build_all()
     return ctypes.CDLL(str(library_path(name)))
+
+
+TENSOR_CORE_OPCODES = ("HMMA", "HGMMA")
+# an instruction of cuobjdump -sass: `/*0a40*/  @!P0 HMMA.16816.F32.BF16 R24, ...`,
+# its address, an optional predicate guard, then the opcode up to its first dot
+_SASS_OPCODE = re.compile(r"/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)")
+
+
+def count_tensor_core_opcodes(sass: str) -> dict[str, int]:
+    """{HMMA, HGMMA: instructions} in cuobjdump -sass text."""
+    ops = _SASS_OPCODE.findall(sass)
+    return {op: ops.count(op) for op in TENSOR_CORE_OPCODES}
+
+
+def tensor_core_instructions(name: str) -> dict[str, int]:
+    """{HMMA, HGMMA: count} in the machine code of csrc/<name>.cu's built library."""
+    lib = library_path(name)
+    if not lib.is_file():
+        raise FileNotFoundError(f"csrc/{name}.cu is not built ({lib})")
+    out = subprocess.run([find_tool("cuobjdump"), "-sass", str(lib)], capture_output=True, text=True,
+                         check=True, timeout=120)
+    return count_tensor_core_opcodes(out.stdout)

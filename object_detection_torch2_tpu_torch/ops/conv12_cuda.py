@@ -1,8 +1,11 @@
-"""conv_1_2 on the card: csrc/conv12.cu bound with ctypes
-(counterpart of object_detection_torch2_tpu/ops/conv12_pallas.py::_conv12_pallas).
+"""conv_1_2 on the card, bound with ctypes (counterpart of
+object_detection_torch2_tpu/ops/conv12_pallas.py::_conv12_pallas): float32
+input runs csrc/conv12.cu on the CUDA cores, bfloat16 input runs
+csrc/conv12_bf16.cu on the tensor cores.
 
-`launches` counts the kernel's launches: `conv12_cuda` adds one each time it
-launches the kernel, and nothing else touches it but a caller that resets it.
+`launches` counts the launches of both kernels and `kernel_launches` those of
+each, by source name: `conv12_cuda` adds one to both each time it launches a
+kernel, and nothing else touches them but a caller that resets them.
 """
 
 from __future__ import annotations
@@ -15,23 +18,34 @@ import torch
 from object_detection_torch2_tpu_torch.ops import _build
 
 CHANNELS = 64
+# the kernel of each input type, by its source's name under csrc/
+KERNEL_OF = {torch.float32: "conv12", torch.bfloat16: "conv12_bf16"}
 launches = 0
+kernel_launches = {name: 0 for name in KERNEL_OF.values()}
 
 
 @functools.cache
-def _lib():
-    lib = _build.load("conv12")
-    fn = lib.conv12_forward
+def _lib(name: str):
+    fn = getattr(_build.load(name), f"{name}_forward")
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
 def pack_weights(w: torch.Tensor) -> torch.Tensor:
-    """(co, ci, 3, 3) -> (3, 3, ci, co) float32, the layout the kernel stages
-    (147,456 bytes for 64 channels). Exact for float32 and bfloat16 weights."""
+    """(co, ci, 3, 3) -> (3, 3, ci, co) float32, the layout the float32 kernel
+    stages (147,456 bytes for 64 channels)."""
     return w.permute(2, 3, 1, 0).to(torch.float32).contiguous()
+
+
+def pack_weights_bf16(w: torch.Tensor) -> torch.Tensor:
+    """(co, ci, 3, 3) bfloat16 -> (3, 3, co, ci) bfloat16, the layout the
+    tensor-core kernel stages once per block (73,728 bytes for 64 channels):
+    row (tap, co) holds operand B's 64 input channels contiguously."""
+    if w.dtype != torch.bfloat16:
+        raise TypeError(f"pack_weights_bf16 takes bfloat16 weights, got {w.dtype}")
+    return w.permute(2, 3, 0, 1).contiguous()
 
 
 def conv12_cuda(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
@@ -60,14 +74,15 @@ def conv12_cuda(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     y = torch.empty_like(x, memory_format=torch.channels_last)
     if y.numel() == 0:
         return y
-    wpk = pack_weights(w)
+    name = KERNEL_OF[x.dtype]
+    wpk = pack_weights(w) if x.dtype == torch.float32 else pack_weights_bf16(w)
     bias = b.to(torch.float32).contiguous()
-    fn = _lib()
+    fn = _lib(name)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream()
-        rc = fn(x.data_ptr(), wpk.data_ptr(), bias.data_ptr(), y.data_ptr(), n, h, wd,
-                int(x.dtype == torch.bfloat16), stream.cuda_stream)
+        rc = fn(x.data_ptr(), wpk.data_ptr(), bias.data_ptr(), y.data_ptr(), n, h, wd, stream.cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"conv12 kernel launch failed: CUDA error {rc}")
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
     launches += 1
+    kernel_launches[name] += 1
     return y

@@ -118,6 +118,20 @@ def test_pack_weights_layout():
     assert wp[1, 2, 5, 7] == w.bfloat16()[7, 5, 1, 2].float()
 
 
+
+def test_pack_weights_bf16_layout():
+    """The tensor-core kernel's weights: (co, ci, ky, kx) -> (ky, kx, co, ci),
+    bfloat16, values unchanged bit for bit; float32 weights are refused."""
+    w = torch.from_numpy(np.random.default_rng(3).standard_normal((64, 64, 3, 3)).astype(np.float32)).bfloat16()
+    wp = conv12_cuda.pack_weights_bf16(w)
+    assert wp.shape == (3, 3, 64, 64) and wp.dtype == torch.bfloat16 and wp.is_contiguous()
+    for ky, kx, co, ci in [(0, 0, 0, 0), (1, 2, 5, 7), (2, 1, 63, 0), (2, 2, 17, 63)]:
+        assert wp[ky, kx, co, ci].view(torch.int16) == w[co, ci, ky, kx].view(torch.int16)
+    assert torch.equal(wp.view(9, 64, 64), w.permute(2, 3, 0, 1).reshape(9, 64, 64))
+    assert conv12_cuda.KERNEL_OF == {torch.float32: "conv12", torch.bfloat16: "conv12_bf16"}
+    with pytest.raises(TypeError):
+        conv12_cuda.pack_weights_bf16(w.float())
+
 @pytest.fixture(scope="module")
 def ssd_264():
     """JAX SSD(conv12_kernel=True) (interpret mode) at imsize 264, batch 1,

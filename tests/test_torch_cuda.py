@@ -46,7 +46,7 @@ def _sorted_clustered(rng, n, p, dense, device):
     return torch.from_numpy(sb).to(device), torch.from_numpy(sv).to(device)
 
 
-@pytest.mark.parametrize("p", [1, 100, 128, 129, 1024, 8732])
+@pytest.mark.parametrize("p", [1, 63, 64, 65, 100, 128, 129, 1024, 8732])
 @pytest.mark.parametrize("dense", [True, False])
 def test_kernel_equals_plain(card, p, dense):
     rng = np.random.default_rng(p + dense)
@@ -60,13 +60,41 @@ def test_kernel_equals_plain(card, p, dense):
     assert torch.equal(got, want)
 
 
-def test_kernel_other_thresholds_and_nan(card):
-    rng = np.random.default_rng(3)
-    sb, sv = _sorted_clustered(rng, 4, 700, True, card)
-    sb[:, 5] = float("nan")
-    sb[:, 9, 2] = float("inf")
-    for thresh in (0.0, 0.3, 0.7):
-        assert torch.equal(nms_cuda.nms_keep_sorted_cuda(sb, sv, thresh), nms._blocked_keep_sorted(sb, sv, thresh))
+@pytest.mark.parametrize("thresh", [0.0, 0.3, 0.7])
+@pytest.mark.parametrize("case", ["nan_inf", "ties", "all_invalid", "holes"])
+@pytest.mark.parametrize("p", [1, 63, 64, 65, 129, 1024])
+def test_kernel_edge_cases_equal_plain(card, p, case, thresh):
+    """NaN and inf boxes, exact duplicates, no valid candidate, and valid
+    candidates with invalid ones between them, at every threshold."""
+    rng = np.random.default_rng(p * 7 + len(case))
+    sb, sv = _sorted_clustered(rng, 4, p, True, card)
+    if case == "nan_inf":
+        sb[:, 5 % p] = float("nan")
+        sb[:, 9 % p, 2] = float("inf")
+        sb[:, (p - 1), 0] = float("-inf")
+    elif case == "ties":
+        sb[:, 1::3] = sb[:, 0:1]
+    elif case == "all_invalid":
+        sv[:] = False
+    else:
+        sv &= torch.from_numpy(rng.uniform(size=sv.shape) < 0.4).to(card)
+    got = nms_cuda.nms_keep_sorted_cuda(sb, sv, thresh)
+    assert torch.equal(got, nms._blocked_keep_sorted(sb, sv, thresh))
+    if case == "all_invalid":
+        assert not got.any()
+
+
+def test_kernel_raises_above_scratch_cap(card, monkeypatch):
+    sb, sv = _sorted_clustered(np.random.default_rng(6), 2, 300, True, card)
+    need = nms_cuda.mask_scratch_bytes(2, 300)
+    assert need == 2 * 300 * 5 * 8
+    monkeypatch.setattr(nms_cuda, "MASK_SCRATCH_CAP_BYTES", need - 1)
+    before = nms_cuda.launches
+    with pytest.raises(ValueError, match="scratch"):
+        nms_cuda.nms_keep_sorted_cuda(sb, sv)
+    assert nms_cuda.launches == before
+    monkeypatch.setattr(nms_cuda, "MASK_SCRATCH_CAP_BYTES", need)
+    assert torch.equal(nms_cuda.nms_keep_sorted_cuda(sb, sv), nms._blocked_keep_sorted(sb, sv, 0.5))
 
 
 def test_kernel_wrapper_checks(card):
@@ -119,8 +147,10 @@ def conv12_within_tolerance(got, want):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("n,h,w", [(1, 1, 1), (2, 16, 16), (3, 38, 50), (1, 17, 33), (4, 300, 300)])
+@pytest.mark.parametrize("n,h,w", [(1, 1, 1), (2, 16, 16), (3, 38, 50), (1, 17, 33), (4, 300, 300), (5, 300, 300)])
 def test_conv12_kernel_equals_plain(card, dtype, n, h, w):
+    """(5, 300, 300) is 1805 tiles of 16 x 16, not a multiple of the
+    bfloat16 kernel's persistent grid (one block per SM)."""
     x, wt, b = _conv12_case(n, h, w, dtype, card, seed=h * w)
     before = conv12_cuda.launches
     got = conv12_cuda.conv12_cuda(x, wt, b)
@@ -130,6 +160,20 @@ def test_conv12_kernel_equals_plain(card, dtype, n, h, w):
     assert got.dtype == dtype and got.shape == want.shape
     assert got.is_contiguous(memory_format=torch.channels_last)
     assert conv12_within_tolerance(got, want)
+
+
+def test_conv12_dispatch_by_dtype(card):
+    """float32 runs the CUDA-core kernel csrc/conv12.cu, bfloat16 the
+    tensor-core kernel csrc/conv12_bf16.cu, whose machine code holds
+    tensor-core instructions."""
+    for dtype, name in ((torch.float32, "conv12"), (torch.bfloat16, "conv12_bf16")):
+        x, wt, b = _conv12_case(2, 20, 24, dtype, card, seed=9)
+        before = dict(conv12_cuda.kernel_launches)
+        conv12_cuda.conv12_cuda(x, wt, b)
+        after = conv12_cuda.kernel_launches
+        assert {k: after[k] - before[k] for k in after} == {k: int(k == name) for k in after}
+    assert sum(_build.tensor_core_instructions("conv12_bf16").values()) > 0
+    assert sum(_build.tensor_core_instructions("conv12").values()) == 0
 
 
 def test_conv12_backward_equals_plain_autograd(card):
@@ -166,7 +210,7 @@ def test_conv12_wrapper_checks(card):
 
 def test_ssd_with_conv12_kernel_launches_it_once_per_forward(card):
     model = SSD(num_classes=21, conv12_kernel=True).to(card)
-    x = torch.rand((2, 264, 264, 3), device=card)
+    x = torch.from_numpy(np.random.default_rng(8).uniform(0, 1, (2, 264, 264, 3)).astype(np.float32)).to(card)
     before = conv12_cuda.launches
     with torch.no_grad():
         got = model.eval()(x, use_batch_stats=True)

@@ -193,17 +193,17 @@ def test_kernel_wrapper_refuses_cpu_tensors():
 
 def test_build_flags_and_missing_nvcc(monkeypatch, tmp_path):
     """The NMS kernel is built for sm_90a without FMA contraction or fast
-    math, conv_1_2 with FMA contraction; each source has its own build
-    directory, keyed by its flags; and a machine without nvcc gets an error
-    that says so."""
+    math, both conv_1_2 kernels with FMA contraction; each source has its own
+    build directory, keyed by its flags; and a machine without nvcc gets an
+    error that says so."""
     srcs = {s.name: s for s in _build.sources()}
-    assert sorted(srcs) == ["conv12.cu", "nms_keep_sorted.cu"]
+    assert sorted(srcs) == ["conv12.cu", "conv12_bf16.cu", "nms_keep_sorted.cu"]
     nms_cmd = _build.nvcc_command("nvcc", srcs["nms_keep_sorted.cu"], tmp_path / "lib.so")
-    conv_cmd = _build.nvcc_command("nvcc", srcs["conv12.cu"], tmp_path / "lib.so")
-    for cmd in (nms_cmd, conv_cmd):
+    conv_cmds = [_build.nvcc_command("nvcc", srcs[f], tmp_path / "lib.so") for f in ("conv12.cu", "conv12_bf16.cu")]
+    for cmd in (nms_cmd, *conv_cmds):
         assert "arch=compute_90a,code=sm_90a" in cmd and "--use_fast_math" not in cmd
-    assert "-fmad=false" in nms_cmd and "-fmad=false" not in conv_cmd
-    assert _build.build_dir("nms_keep_sorted") != _build.build_dir("conv12")
+    assert "-fmad=false" in nms_cmd and all("-fmad=false" not in cmd for cmd in conv_cmds)
+    assert len({_build.build_dir(s.stem) for s in srcs.values()}) == 3
     before = _build.build_dir("conv12")
     monkeypatch.setitem(_build.SOURCE_FLAGS, "conv12", ("-DEXTRA",))
     assert _build.build_dir("conv12") != before
@@ -215,3 +215,90 @@ def test_build_flags_and_missing_nvcc(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.build_all()
     assert not list(tmp_path.glob("*/*.so"))
+
+
+def test_tensor_core_opcode_count():
+    """The SASS parser behind chip_smoke.py's tensor-core check: opcodes after
+    the address, with or without a predicate guard; encodings, labels and
+    other opcodes are not counted."""
+    sass = """
+        Function : _Z6kernelv
+        /*0a40*/                   HMMA.16816.F32.BF16 R24, R4, R20, R24 ;    /* 0x000000140418723c */
+                                                                              /* 0x004fe20000041818 */
+        /*0a50*/              @!P0 HGMMA.64x64x16.F32.BF16 R24, gdesc[UR4], R24 ;
+        /*0a60*/              @UP1 HGMMA.64x64x16.F32.BF16 R24, gdesc[UR8], R24, gsb0 ;
+        /*0a70*/                   LDSM.16.M88.4 R4, [R2] ;
+        /*0a80*/                   FMNMX.NAN R27, R15, R8, !PT ;
+    .L_x_12:
+"""
+    assert _build.count_tensor_core_opcodes(sass) == {"HMMA": 1, "HGMMA": 2}
+    assert _build.count_tensor_core_opcodes("") == {"HMMA": 0, "HGMMA": 0}
+
+
+def _kernel_model_keep_sorted(sorted_boxes, sorted_valid, thresh, tile=64):
+    """The CUDA sweep's algorithm (csrc/nms_keep_sorted.cu) in plain PyTorch:
+    the mask kernel's words in its bit order, then the resolve kernel's walk
+    over 64-wide blocks (a greedy on the diagonal word, then the kept rows'
+    words OR-ed into `removed`). Words are Python ints; bit c of word (i, cb)
+    is overlaps(i, cb*64 + c) and i < cb*64 + c."""
+    n, p, _ = sorted_boxes.shape
+    nb = -(-p // tile)
+    keep = torch.zeros((n, p), dtype=torch.bool)
+    for img in range(n):
+        iou = nms.pairwise_iou(sorted_boxes[img], sorted_boxes[img])  # (P, P), earlier candidate first
+        idx = torch.arange(p)
+        over = (iou > thresh) & (idx[:, None] < idx[None, :])
+        words = [[sum(1 << c for c in range(min(tile, p - cb * tile)) if over[i, cb * tile + c])
+                  for cb in range(nb)] for i in range(p)]
+        valid = [sum(1 << c for c in range(min(tile, p - cb * tile)) if sorted_valid[img, cb * tile + c])
+                 for cb in range(nb)]
+        removed = [0] * nb
+        for cb in range(nb):
+            alive = valid[cb] & ~removed[cb]
+            for s in range(tile):
+                if (alive >> s) & 1:
+                    alive &= ~words[cb * tile + s][cb]
+            for s in range(tile):
+                if (alive >> s) & 1:
+                    keep[img, cb * tile + s] = True
+                    for w in range(cb + 1, nb):
+                        removed[w] |= words[cb * tile + s][w]
+            if not any(valid[w] & ~removed[w] for w in range(cb + 1, nb)):
+                break
+    return keep
+
+
+@pytest.mark.parametrize("p", [1, 63, 64, 65, 129, 1024])
+def test_kernel_algorithm_model_equals_serial_and_jax(p):
+    """The bit-mask algorithm of the CUDA sweep, modelled on the CPU, on
+    clustered boxes with tied scores, exact duplicates and NaN boxes: equal
+    to the port's serial loop and plain sweep and to the JAX package's
+    serial loop and its `nms_keep_mask`."""
+    rng = np.random.default_rng(100 + p)
+    n = 2 if p < 1024 else 1
+    boxes, scores = _tied(rng, n, p)
+    if p > 3:
+        boxes[:, 3] = np.nan
+        boxes[:, p // 2, 2] = np.nan
+    sb, sv = _sorted(boxes, scores)
+    got = _kernel_model_keep_sorted(torch.from_numpy(sb), torch.from_numpy(sv), 0.5).numpy()
+    np.testing.assert_array_equal(got, nms._blocked_keep_sorted(torch.from_numpy(sb), torch.from_numpy(sv), 0.5).numpy())
+    order = np.argsort(-scores, axis=-1, kind="stable")
+    keep = np.zeros_like(got)
+    np.put_along_axis(keep, order, got, axis=1)
+    np.testing.assert_array_equal(keep, nms.nms_keep_mask_serial(torch.from_numpy(boxes), torch.from_numpy(scores)).numpy())
+    jb, js = jnp.asarray(boxes), jnp.asarray(scores)
+    np.testing.assert_array_equal(keep, np.asarray(jax_nms.nms_keep_mask_serial(jb, js)))
+    np.testing.assert_array_equal(keep, np.asarray(jax_nms.nms_keep_mask(jb, js, dense_backend="xla")))
+    if p > 1:
+        assert keep.any() and not keep.all()
+
+
+def test_mask_scratch_bytes():
+    """One 64-bit word per candidate and 64-wide column block: 306 MB at the
+    serving path's 32 x 8732, under the cap."""
+    assert nms_cuda.mask_scratch_bytes(1, 1) == 8
+    assert nms_cuda.mask_scratch_bytes(2, 64) == 2 * 64 * 8
+    assert nms_cuda.mask_scratch_bytes(2, 65) == 2 * 65 * 2 * 8
+    assert nms_cuda.mask_scratch_bytes(32, 8732) == 32 * 8732 * 137 * 8
+    assert nms_cuda.mask_scratch_bytes(32, 8732) < nms_cuda.MASK_SCRATCH_CAP_BYTES
