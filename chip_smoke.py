@@ -1,5 +1,5 @@
-"""Drives the PyTorch/CUDA port's serving and training paths on one CUDA card
-and checks them.
+"""Drives the PyTorch/CUDA port's serving, evaluation and training paths on one
+CUDA card and checks them.
 
     python3 chip_smoke.py [--out results.json]
 
@@ -22,7 +22,18 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    just after; detections must be well-formed; the post-processing of one
    batch is redone with the plain sweep on the same forward output and must
    give identical packed rows; then img/s at batch 32;
-6. conv12 kernels vs plain: the conv_1_2 kernels (float32: csrc/conv12.cu on
+6. evaluation main path: `cli.evaluate.main --records_dir --batch_size 32
+   --imsize 300 --strict_ap` in float32 and bfloat16, over 70 seeded records
+   (written here with numpy) whose ground truth is planted on the model's own
+   top-3 detections of each image from a first `Predictor` pass, with the
+   seeded weights saved by the port's `save_weights`. The NMS launch count is
+   reset just before and read just after (one per batch: 3); the parity mAP
+   must be 1.0 within 1e-6; batch 0's matches through the plain sweep must
+   equal the pipeline's element for element; the report is written and the
+   weights file gives the saved state back bit-equal. Then eval img/s at
+   batch 32 and a batch's split into forward, post-processing, matcher and
+   D2H + AP accumulation;
+7. conv12 kernels vs plain: the conv_1_2 kernels (float32: csrc/conv12.cu on
    the CUDA cores; bfloat16: csrc/conv12_bf16.cu on the tensor cores) against
    `conv12_plain` on the card at the training path's shape (32, 64, 300, 300)
    channels_last and at a ragged (3, 64, 38, 50), from seeded numpy inputs
@@ -32,12 +43,12 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    zero; the autograd backward of sum(y * r) against plain autograd within
    rtol 1e-4.
    Kernel, plain and F.conv2d (cuDNN) times beside the bound;
-7. trajectory replay: tests/goldens/train_trajectory.npz (20 steps, batch 4,
+8. trajectory replay: tests/goldens/train_trajectory.npz (20 steps, batch 4,
    imsize 300) through `Trainer` with `conv12_kernel=True` in float32, to the
    pins of tests/test_trajectory.py: per-step loss drift < 3e-3, step-0 drift
    < 1e-4, final trainable-parameter and BN-statistics fingerprint budgets;
    the frozen trunk bit-unchanged; one conv12 launch per forward;
-8. training main path: SSD300 at batch 32 with G = 64 GT rows, seeded
+9. training main path: SSD300 at batch 32 with G = 64 GT rows, seeded
    weights and batches, `conv12_kernel=True`, in float32 and bfloat16: five
    `train_step`s, one `train_steps` call of K = 3 and one `eval_step`. The
    conv12 launch count is reset just before and read just after. Losses
@@ -47,7 +58,7 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    Each dtype's forwards must have run that dtype's conv_1_2 kernel.
    ms per step (CUDA events) and img/s, and the step split into forward,
    loss, backward and Adam;
-9. the kernels line (JSON), then the last line
+10. the kernels line (JSON), then the last line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Imports nothing of JAX. Every time printed here was measured on the card in
@@ -61,6 +72,7 @@ import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import zlib
 from pathlib import Path
@@ -367,6 +379,157 @@ def phase_main_path(card: str) -> dict:
               f"to the plain sweep ({card})")
         if dtype == torch.float32:
             res["sweep_inputs"] = (captured["sb"], captured["sv"])
+    return res
+
+
+def write_records(out_dir: Path, images: np.ndarray, gts: np.ndarray):
+    """Packed records in the layout of the port's data/records.py, with numpy only."""
+    out_dir.mkdir(parents=True)
+    np.save(out_dir / "images.npy", images)
+    np.save(out_dir / "gts.npy", gts)
+    meta = {"imsize": images.shape[1], "max_gt": gts.shape[1], "count": len(images), "purpose": "detection",
+            "seen_max_gt": int((gts[..., 4:].sum(-1) > 0).sum(-1).max()), "sources": [], "list_file": ""}
+    (out_dir / "meta.json").write_text(json.dumps(meta, indent=4))
+
+
+def plant_gts(dets) -> np.ndarray:
+    """Ground truth on each image's top-3 detections: the detection's box and
+    a one-hot of its class + 1 (void at 0), zero rows up to G_PAD."""
+    gts = np.zeros((len(dets), G_PAD, 25), np.float32)
+    for i, d in enumerate(dets):
+        k = min(3, len(d.scores))
+        gts[i, :k, :4] = d.boxes[:k]
+        gts[i, np.arange(k), 4 + d.class_ids[:k] + 1] = 1.0
+    return gts
+
+
+def unclaimed_gts(run, images: np.ndarray, gts: np.ndarray) -> list:
+    """(image, class, planted count, TPs) wherever the pipeline's matches
+    claim fewer planted ground truths than there are."""
+    misses = []
+    for start in range(0, len(images), BATCH):
+        real = min(BATCH, len(images) - start)
+        pad = np.arange(start, start + BATCH).clip(max=len(images) - 1)
+        matches, _ = run(images[pad], gts[pad], real)
+        tp = matches["correct"].sum(-1).cpu().numpy()
+        counts = matches["counts"].cpu().numpy()
+        for i, c in zip(*np.nonzero(tp[:real] < counts[:real])):
+            misses.append((start + int(i), int(c), int(counts[i, c]), int(tp[i, c])))
+    return misses
+
+
+def phase_evaluation(card: str) -> dict:
+    """The evaluation main path: `cli.evaluate.main` over 70 seeded records
+    at batch 32 whose ground truth is planted on the model's own top-3
+    detections, so every planted box is claimed exactly once (NMS keeps no two
+    boxes at IoU > 0.5) and the parity mAP (recall, quirk Q5) is 1.0."""
+    from object_detection_torch2_tpu_torch.cli import evaluate
+    from object_detection_torch2_tpu_torch.core.anchors import default_boxes, feature_grids_for
+    from object_detection_torch2_tpu_torch.data.augment import to_tensor_batch
+    from object_detection_torch2_tpu_torch.data.loader import DataLoader
+    from object_detection_torch2_tpu_torch.data.records import RecordDataset
+    from object_detection_torch2_tpu_torch.infer import Predictor, postprocess
+    from object_detection_torch2_tpu_torch.metrics.ap import APAccumulator
+    from object_detection_torch2_tpu_torch.metrics.assign import detection_matches
+    from object_detection_torch2_tpu_torch.models.convert import ssd_state_dict_from_jax_variables
+    from object_detection_torch2_tpu_torch.models.ssd import SSD
+    from object_detection_torch2_tpu_torch.ops import nms, nms_cuda
+    from object_detection_torch2_tpu_torch.ops.scores import expand_detections
+    from object_detection_torch2_tpu_torch.train.checkpoint import load_weights, save_weights
+
+    images = np.random.default_rng(3).integers(0, 256, (N_IMAGES, IMSIZE, IMSIZE, 3), dtype=np.uint8)
+    df = torch.from_numpy(default_boxes(feature_grids_for(IMSIZE)).copy()).to(DEVICE)
+    n_batches = -(-N_IMAGES // BATCH)
+    res = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).replace("torch.", "")
+        model = SSD(num_classes=21, dtype=dtype, seed=0)
+        gts = plant_gts(Predictor(model, imsize=IMSIZE, batch_size=BATCH).predict(images))
+        with tempfile.TemporaryDirectory() as tmp:
+            tmp = Path(tmp)
+            write_records(tmp / "records", images, gts)
+            weights = tmp / "result" / "detection" / "weights.msgpack"
+            save_weights(weights, model)
+            argv = ["--records_dir", str(tmp / "records"), "--result_dir", str(tmp / "result"),
+                    "--batch_size", str(BATCH), "--imsize", str(IMSIZE), "--dtype", name, "--strict_ap"]
+
+            nms_cuda.launches = 0
+            t0 = time.perf_counter()
+            aps, mean_ap, strict_mean, _ = evaluate.main(argv)
+            main_s = time.perf_counter() - t0
+            launches = nms_cuda.launches
+            if launches != n_batches:
+                raise AssertionError(f"the evaluation of {N_IMAGES} images launched the NMS kernel {launches} "
+                                     f"times, not once for each of its {n_batches} batches")
+
+            run = evaluate.build_eval_pipeline(model, True, IMSIZE, 20, device=DEVICE)
+            if not abs(mean_ap - 1.0) <= 1e-6:
+                raise AssertionError(f"parity mAP {mean_ap!r} is not 1.0 on planted ground truth (per class {aps}); "
+                                     f"(image, class, planted, claimed): {unclaimed_gts(run, images, gts)}")
+
+            reports = list((tmp / "result" / "detection").glob("report_*.md"))
+            if len(reports) != 1 or "|**mean**|**1.0**|" not in reports[0].read_text():
+                raise AssertionError(f"no report with mean 1.0 written: {reports}")
+            saved = ssd_state_dict_from_jax_variables(load_weights(weights))
+            for key, v in model.state_dict().items():
+                if not torch.equal(saved[key], v.cpu()):
+                    raise AssertionError(f"weights file does not give back {key} bit-equal")
+
+            # batch 0 again: the pipeline's matches (NMS kernel) against the
+            # plain sweep's on the same forward
+            x_u8, g0 = images[:BATCH], torch.from_numpy(gts[:BATCH]).to(DEVICE)
+            mask = torch.ones(BATCH, device=DEVICE)
+            got, _ = run(x_u8, gts[:BATCH], BATCH)
+            with torch.inference_mode():
+                out = model(to_tensor_batch(torch.from_numpy(x_u8).to(DEVICE)), use_batch_stats=True,
+                            batch_mask=mask)
+                packed, _ = postprocess(out, df, mask, sweep=nms._blocked_keep_sorted)
+                want = detection_matches(expand_detections(packed[..., :4], packed[..., 4].long(), packed[..., 5], 21),
+                                         g0, num_classes=20)
+            for key in want:
+                if not torch.equal(got[key], want[key]):
+                    raise AssertionError(f"evaluation matches '{key}' differ between the NMS kernel and the plain "
+                                         f"sweep: {int((got[key] != want[key]).sum())} entries")
+
+            # eval img/s over the two full batches, after the run above warmed
+            # everything up; then where a batch's time goes
+            loader = DataLoader(RecordDataset(tmp / "records"), BATCH, drop_last=True)
+            t = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                evaluate.accumulate(run, loader, BATCH, 20, 200)
+                t.append(time.perf_counter() - t0)
+            batch_s = statistics.median(t) / len(loader)
+            with torch.inference_mode():
+                x = to_tensor_batch(torch.from_numpy(x_u8).to(DEVICE))
+                forward_ms = time_ms(lambda: model(x, use_batch_stats=True, batch_mask=mask), reps=3)
+                packed, _ = postprocess(out, df, mask)
+                post_ms = time_ms(lambda: postprocess(out, df, mask), reps=3)
+                compact = expand_detections(packed[..., :4], packed[..., 4].long(), packed[..., 5], 21)
+                matcher_ms = time_ms(lambda: detection_matches(
+                    expand_detections(packed[..., :4], packed[..., 4].long(), packed[..., 5], 21), g0, 20), reps=10)
+                host = []
+                for _ in range(5):
+                    m = detection_matches(compact, g0, 20)
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    APAccumulator(20).update(m)
+                    host.append((time.perf_counter() - t0) * 1e3)
+        host_ms = statistics.median(host)
+        batch_ms = batch_s * 1e3
+        other_ms = batch_ms - forward_ms - post_ms - matcher_ms - host_ms
+        res[name] = {"launches": launches, "mean_ap": mean_ap, "strict_mean_ap": strict_mean,
+                     "aps": [float(a) for a in aps], "main_s": main_s, "img_per_s": BATCH / batch_s,
+                     "batch_ms": batch_ms, "forward_ms": forward_ms, "post_ms": post_ms, "matcher_ms": matcher_ms,
+                     "host_d2h_ap_ms": host_ms, "rest_ms": other_ms}
+        print(f"evaluation main path {name} bs{BATCH}: parity mAP {mean_ap:.7f} (strict {strict_mean:.4f}) on "
+              f"{N_IMAGES} records with planted ground truth, NMS launches {launches} for {N_IMAGES} images, "
+              f"batch-0 matches identical to the plain sweep's, weights file round trip bit-equal, report written; "
+              f"{BATCH / batch_s:.1f} img/s ({batch_ms:.2f} ms a batch: forward {forward_ms:.2f}, post-processing "
+              f"{post_ms:.2f}, matcher {matcher_ms:.3f}, D2H + AP accumulation {host_ms:.2f}, rest {other_ms:.2f}); "
+              f"main() {main_s:.1f} s ({card})")
+        del model, run
+        torch.cuda.empty_cache()
     return res
 
 
@@ -769,6 +932,7 @@ def main(argv=None) -> int:
     main_path = phase_main_path(card)
     entries = [kernel_entry(main_path, card)]
     results["main_path"] = main_path
+    results["evaluation"] = phase_evaluation(card)
     results["conv12_vs_plain"] = phase_conv12(card)
     results["trajectory"] = phase_trajectory(card)
     results["training"] = phase_training(card)

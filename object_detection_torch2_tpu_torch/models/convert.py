@@ -5,6 +5,10 @@
   of object_detection_torch2_tpu/models/convert.py `ssd_variables_from_torch`:
   conv kernel HWIO -> weight OIHW; BN scale/bias/mean/var ->
   weight/bias/running_mean/running_var; num_batches_tracked = 0.
+  `jax_variables_from_state_dict` is its exact inverse (what the port's
+  weights files hold).
+- `ssd_trunk_from_vgg16_variables`, `merge_variables`: seed an SSD's trunk
+  from the JAX package's VGG16 classification variables.
 - `ssd_state_dict_from_torch`: a reference-layout state_dict (numpy arrays or
   tensors) -> tensors, after checking every key, shape and dtype.
 - `jax_path` / `to_jax_layout` / `jax_tree`: the key mapping between the
@@ -68,25 +72,75 @@ def ssd_state_dict_from_torch(sd: dict, num_classes: int = 21) -> dict:
     return out
 
 
+def _tensor(a) -> torch.Tensor:
+    """A leaf (numpy, array-like, or a tensor such as a bfloat16 leaf of a
+    weights file) as a CPU tensor; numpy leaves are copied, since they may be
+    read-only views of a file's bytes."""
+    return a.detach().cpu() if isinstance(a, torch.Tensor) else torch.from_numpy(np.array(a))
+
+
 def ssd_state_dict_from_jax_variables(variables: dict, num_classes: int = 21) -> dict:
-    """{"params": {layer: {...}}, "batch_stats": {layer: {...}}} (numpy or
-    array-likes) -> the port's state_dict of CPU tensors."""
+    """{"params": {layer: {...}}, "batch_stats": {layer: {...}}} (numpy,
+    array-likes or tensors) -> the port's state_dict of CPU tensors."""
     params, stats = variables["params"], variables.get("batch_stats", {})
     sd = {}
     for name, p in params.items():
         if name.startswith("conv_") or name.startswith("det_"):
             prefix = "features" if name.startswith("conv_") else "detectors"
-            sd[f"{prefix}.{name}.weight"] = np.transpose(np.asarray(p["kernel"]), (3, 2, 0, 1))
-            sd[f"{prefix}.{name}.bias"] = np.asarray(p["bias"])
+            sd[f"{prefix}.{name}.weight"] = _tensor(p["kernel"]).permute(3, 2, 0, 1).contiguous()
+            sd[f"{prefix}.{name}.bias"] = _tensor(p["bias"])
         elif name.startswith("bn_"):
-            sd[f"features.{name}.weight"] = np.asarray(p["scale"])
-            sd[f"features.{name}.bias"] = np.asarray(p["bias"])
-            sd[f"features.{name}.running_mean"] = np.asarray(stats[name]["mean"])
-            sd[f"features.{name}.running_var"] = np.asarray(stats[name]["var"])
-            sd[f"features.{name}.num_batches_tracked"] = np.zeros((), np.int64)
+            sd[f"features.{name}.weight"] = _tensor(p["scale"])
+            sd[f"features.{name}.bias"] = _tensor(p["bias"])
+            sd[f"features.{name}.running_mean"] = _tensor(stats[name]["mean"])
+            sd[f"features.{name}.running_var"] = _tensor(stats[name]["var"])
+            sd[f"features.{name}.num_batches_tracked"] = torch.zeros((), dtype=torch.int64)
         else:
             raise ValueError(f"unknown SSD layer {name!r}")
     return ssd_state_dict_from_torch(sd, num_classes)
+
+
+def jax_variables_from_state_dict(sd: dict, num_classes: int = 21) -> dict:
+    """The exact inverse of `ssd_state_dict_from_jax_variables`: the port's
+    state_dict -> the JAX package's {"params", "batch_stats"} tree, conv
+    weights OIHW -> HWIO, leaves as C-contiguous numpy copies.
+    `num_batches_tracked` has no JAX counterpart and is dropped. Layers and
+    leaves come in the state_dict's order; the weights file sorts them as
+    flax does."""
+    params, stats = {}, {}
+    for key, t in ssd_state_dict_from_torch(sd, num_classes).items():
+        if key.endswith("num_batches_tracked"):
+            continue
+        layer, leaf = jax_path(key)
+        t = t.detach().cpu()
+        if t.dim() == 4:
+            t = t.permute(2, 3, 1, 0)
+        value = t.clone(memory_format=torch.contiguous_format).numpy()  # no leaf aliases the model's tensors
+        (stats if leaf in ("mean", "var") else params).setdefault(layer, {})[leaf] = value
+    return {"params": params, "batch_stats": stats}
+
+
+def ssd_trunk_from_vgg16_variables(vgg_vars: dict) -> dict:
+    """The conv_1_1..bn_5_3 trunk of the JAX package's VGG16 variables, for
+    seeding an SSD (the reference's `weights_path_vgg16` path, ssd.py:25;
+    copy of object_detection_torch2_tpu/models/convert.py:98-108)."""
+    def keep(name):
+        return name.split("_")[1].isdigit() and int(name.split("_")[1]) <= 5 and (
+            name.startswith("conv_") or name.startswith("bn_"))
+
+    return {
+        "params": {k: v for k, v in vgg_vars["params"].items() if keep(k)},
+        "batch_stats": {k: v for k, v in vgg_vars["batch_stats"].items() if keep(k)},
+    }
+
+
+def merge_variables(base: dict, overlay: dict) -> dict:
+    """Shallow-merge overlay collections/layers into base, layer by layer
+    (copy of object_detection_torch2_tpu/models/convert.py:111-116)."""
+    out = {coll: dict(layers) for coll, layers in base.items()}
+    for coll, layers in overlay.items():
+        out.setdefault(coll, {}).update(layers)
+    return out
 
 
 _BN_LEAVES = {"weight": "scale", "bias": "bias", "running_mean": "mean", "running_var": "var"}

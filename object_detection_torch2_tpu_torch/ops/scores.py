@@ -1,5 +1,5 @@
-"""Post-processing scores and top-K compaction
-(counterpart of object_detection_torch2_tpu/ops/scores.py:15-46).
+"""Post-processing scores, top-K compaction and its inverse layout
+(counterpart of object_detection_torch2_tpu/ops/scores.py:15-54).
 
 Softmax over all C classes (INCLUDING void), then zero every class except the
 argmax — at most one nonzero score per anchor (reference: src/utils.py:43-55).
@@ -45,3 +45,12 @@ def top_k_detections(post: torch.Tensor, k: int, batch_mask: torch.Tensor | None
     boxes = torch.gather(post[..., :4], 1, idx[..., None].expand(-1, -1, 4))
     classes = torch.gather(class_ids, 1, idx) * (top_scores > 0)
     return boxes, classes, top_scores
+
+
+def expand_detections(boxes: torch.Tensor, class_ids: torch.Tensor, scores: torch.Tensor, num_classes: int):
+    """Inverse layout of top_k_detections: (boxes (N, K, 4), class_ids (N, K),
+    scores (N, K)) -> (N, K, 4 + num_classes) rows, the boxes and then a
+    one-hot of the class times the score, feeding code that consumes the
+    reference's post-NMS layout (metrics.assign.detection_matches) at K rows."""
+    onehot = torch.nn.functional.one_hot(class_ids.long(), num_classes).to(scores.dtype)
+    return torch.cat([boxes, onehot * scores[..., None]], dim=-1)

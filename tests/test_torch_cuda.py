@@ -219,3 +219,38 @@ def test_ssd_with_conv12_kernel_launches_it_once_per_forward(card):
     with torch.no_grad():
         want = plain.eval()(x, use_batch_stats=True)
     torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.parametrize("ties", [False, True])
+def test_detection_matches_on_card_equal_cpu(card, ties):
+    """The evaluation matcher at the CLI's shapes (32 images, K = 200, G = 64):
+    its stable score sort and its first-maximum argmaxes (over IoUs, and over
+    0/1 claim bytes) decide ties on the card as on the CPU. Clustered boxes
+    give each ground truth many claimants; every GT is repeated once, so two
+    GTs sit at exactly equal IoU."""
+    from object_detection_torch2_tpu_torch.metrics.assign import detection_matches
+
+    rng = np.random.default_rng(40 + ties)
+    n, k, g = 32, 200, 64
+    out = np.zeros((n, k, 25), np.float32)
+    centers = rng.uniform(0.25, 0.75, (n, 8, 2))
+    out[..., :2] = np.take_along_axis(centers, rng.integers(0, 8, (n, k))[..., None], axis=1) \
+        + rng.normal(0, 0.02, (n, k, 2))
+    out[..., 2:4] = rng.uniform(0.15, 0.25, (n, k, 2))
+    scores = rng.uniform(0, 1, (n, k)).astype(np.float32)
+    if ties:
+        scores = np.round(scores * 4) / 4
+    cls = rng.integers(1, 5, (n, k))
+    out[np.arange(n)[:, None], np.arange(k)[None, :], 4 + cls] = scores
+    gts = np.zeros((n, g, 25), np.float32)
+    src = rng.integers(0, k, (n, g // 2))
+    half = np.take_along_axis(out[..., :4], src[..., None], axis=1) + rng.normal(0, 0.01, (n, g // 2, 4))
+    gts[:, 0::2, :4] = gts[:, 1::2, :4] = half
+    onehot = np.eye(21, dtype=np.float32)[np.take_along_axis(cls, src, axis=1)]
+    gts[:, 0::2, 4:] = gts[:, 1::2, 4:] = onehot
+    want = detection_matches(torch.from_numpy(out), torch.from_numpy(gts), 20)
+    got = detection_matches(torch.from_numpy(out).to(card), torch.from_numpy(gts).to(card), 20)
+    assert int(want["correct"].sum()) > n  # many claims to decide
+    for key in want:
+        assert got[key].device.type == "cuda" and got[key].dtype == want[key].dtype
+        assert torch.equal(got[key].cpu(), want[key]), key
