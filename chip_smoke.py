@@ -1,5 +1,5 @@
-"""Drives the PyTorch/CUDA port's serving, evaluation and training paths on one
-CUDA card and checks them.
+"""Drives the PyTorch/CUDA port's serving, evaluation and training paths and
+its training and inference CLIs on one CUDA card, and checks them.
 
     python3 chip_smoke.py [--out results.json]
 
@@ -58,7 +58,31 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    Each dtype's forwards must have run that dtype's conv_1_2 kernel.
    ms per step (CUDA events) and img/s, and the step split into forward,
    loss, backward and Adam;
-10. the kernels line (JSON), then the last line
+10. augment: `data.augment.apply_augment` on the card against the CPU on one
+   seeded set of draws at 32 x 300 x 300 (the default probabilities), in
+   float32 and bfloat16: GTs equal, erased pixels zero, pixels within the
+   CPU tests' tolerance (float32 max |d| <= 2e-6, bfloat16 1 ulp); its ms
+   (CUDA events) beside the bytes bound; then `Trainer(augment=True)` steps
+   at batch 32 in bfloat16 under `torch.cuda.set_sync_debug_mode("error")`:
+   no step waits on the card;
+11. training CLI: `cli.train.main --records_dir --val_records_dir
+   --batch_size 32 --steps_per_epoch 4` over 128 + 32 seeded numpy-written
+   records (G = 64). bfloat16, with cuDNN's deterministic algorithms: 2
+   epochs with the full state, then 1 resumed from it, against 3 straight
+   in a fresh directory (train augment on, validation un-augmented):
+   epoch 3's losses, the full states and the weights files bit-equal.
+   float32: one run of 2 epochs. For each run: one conv12 launch per train
+   step and per validation batch of the dtype's kernel, the weights file
+   read back bit-equal to the full state of its epoch, params.json, the
+   three TensorBoard scalars per epoch (CRCs checked), phase_times.json, the
+   train-loop and wall img/s;
+12. inference CLI: `cli.inference.main --records_dir --batch_size 32` over
+   70 seeded records in bfloat16 and float32: 70 PNGs, 3 NMS launches each,
+   PNG k pixel-equal to `render_detections_compact` of
+   `Predictor(batch_size=32)`'s detections of image k; img/s and the host's
+   render ms per batch;
+13. the kernels line (JSON; launches summed over the paths that ran each
+   kernel, serving, evaluation and the CLIs included), then the last line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Imports nothing of JAX. Every time printed here was measured on the card in
@@ -70,6 +94,7 @@ from __future__ import annotations
 import argparse
 import json
 import statistics
+import struct
 import subprocess
 import sys
 import tempfile
@@ -877,15 +902,308 @@ def phase_training(card: str) -> dict:
     return res
 
 
-def conv12_entry(conv: dict, training: dict) -> dict:
+AUG_F32_ATOL = 2e-6  # tests/test_torch_augment.py's float32 tolerance against the JAX package
+TRAIN_RECORDS, VAL_RECORDS, CLI_STEPS = 128, 32, 4
+
+
+def augment_within_tolerance(got: torch.Tensor, want: torch.Tensor) -> float:
+    """The worst error in units of the tolerance (<= 1 passes): float32
+    |d| / 2e-6; bfloat16 |d| / (1 ulp of want's magnitude)."""
+    d = (got.float() - want.float()).abs()
+    if got.dtype == torch.float32:
+        return float(d.max()) / AUG_F32_ATOL
+    ulp = torch.exp2(torch.floor(torch.log2(want.float().abs().clamp_min(2.0 ** -126))) - 7)
+    return float((d / ulp).max())
+
+
+def phase_augment(card: str) -> dict:
+    """The augment chain on the card against the CPU, its time, and
+    augmented train steps that never wait on the card."""
+    from object_detection_torch2_tpu_torch.core.anchors import default_boxes, feature_grids_for
+    from object_detection_torch2_tpu_torch.data import augment
+    from object_detection_torch2_tpu_torch.models.ssd import SSD
+    from object_detection_torch2_tpu_torch.train.optimizer import adam_torch
+    from object_detection_torch2_tpu_torch.train.trainer import Trainer
+
+    rng = np.random.default_rng(77)
+    images = torch.from_numpy(rng.integers(0, 256, (BATCH, IMSIZE, IMSIZE, 3), dtype=np.uint8))
+    gts = torch.from_numpy(synth_targets(rng, BATCH, rng.integers(1, G_PAD + 1, BATCH), G_PAD))
+    draws = augment.sample_augment_draws(torch.Generator().manual_seed(77), BATCH, IMSIZE, IMSIZE)
+    erased = augment._erase_mask(draws, IMSIZE, IMSIZE, "cpu")
+    images_d, gts_d, draws_d = images.to(DEVICE), gts.to(DEVICE), draws.to(DEVICE)
+    res = {"jittered": int(draws.jitter.sum()), "flipped": int(draws.flip.sum()), "order": draws.order}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).replace("torch.", "")
+        want_img, want_gts = augment.apply_augment(images, gts, draws, dtype)
+        got_img, got_gts = augment.apply_augment(images_d, gts_d, draws_d, dtype)
+        got_img, got_gts = got_img.cpu(), got_gts.cpu()
+        if not torch.equal(got_gts, want_gts):
+            raise AssertionError(f"augment {name}: GTs on the card differ from the CPU's")
+        if not bool((got_img[erased] == 0).all()):
+            raise AssertionError(f"augment {name}: an erased pixel is not zero on the card")
+        worst = augment_within_tolerance(got_img, want_img)
+        if worst > 1:
+            raise AssertionError(f"augment {name}: card pixels off the CPU's by {worst:.2f} x the tolerance")
+        ms = time_ms(lambda: augment.apply_augment(images_d, gts_d, draws_d, dtype), reps=10)
+        item = torch.empty((), dtype=dtype).element_size()
+        bytes_moved = images.numel() + images.numel() * item + 2 * gts.numel() * 4
+        res[name] = {"ms": ms, "max_err_in_tolerances": worst,
+                     "max_abs_err": float((got_img.float() - want_img.float()).abs().max()),
+                     "bytes": bytes_moved, "bytes_bound_ms": bytes_moved / PEAK_BYTES_PER_S * 1e3}
+        print(f"augment {name} {BATCH}x{IMSIZE}x{IMSIZE}: card vs CPU on the same draws: GTs equal, erased pixels "
+              f"zero, max error {worst:.3f} of the tolerance; {ms:.3f} ms (CUDA events; bytes bound "
+              f"{res[name]['bytes_bound_ms']:.4f} ms) ({card})")
+
+    # augmented train steps never wait on the card
+    trainer = Trainer(SSD(num_classes=21, dtype=torch.bfloat16, seed=0, conv12_kernel=True),
+                      default_boxes=default_boxes(feature_grids_for(IMSIZE)), augment=True)
+    state = trainer.init_state(lambda ps: adam_torch(ps, 1e-3, weight_decay=5e-4))
+    batch_u8 = images.numpy()
+    trainer.train_step(state, batch_u8, gts.numpy())
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        losses = [trainer.train_step(state, batch_u8, gts.numpy()) for _ in range(2)]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    if not all(bool(torch.isfinite(l)) for l in losses):
+        raise AssertionError("non-finite augmented training loss")
+    res["train_step_host_syncs"] = 0
+    print(f"augmented train steps bfloat16 bs{BATCH}: no host sync in 2 steps (sync debug mode 'error') ({card})")
+    del trainer, state
+    torch.cuda.empty_cache()
+    return res
+
+
+def read_scalars(log_dir: Path) -> list:
+    """(tag, value, step) of every scalar in the event files of `log_dir`,
+    in name order, each record's length and payload checked against its
+    masked crc32c (the TFRecord framing of utils/tb.py)."""
+    from object_detection_torch2_tpu_torch.utils.tb import _masked_crc
+
+    def varint(buf, i):
+        shift = value = 0
+        while True:
+            value |= (buf[i] & 0x7F) << shift
+            i, shift = i + 1, shift + 7
+            if not buf[i - 1] & 0x80:
+                return value, i
+
+    def fields(buf):
+        i, out = 0, {}
+        while i < len(buf):
+            key, i = varint(buf, i)
+            wire = key & 7
+            if wire == 0:
+                out[key >> 3], i = varint(buf, i)
+            elif wire in (1, 5):
+                width = 8 if wire == 1 else 4
+                out[key >> 3], i = buf[i:i + width], i + width
+            else:
+                n, i = varint(buf, i)
+                out[key >> 3], i = buf[i:i + n], i + n
+        return out
+
+    scalars = []
+    for path in sorted(log_dir.glob("events.out.tfevents.*")):
+        data, pos = path.read_bytes(), 0
+        while pos < len(data):
+            header = data[pos:pos + 8]
+            (n,) = struct.unpack("<Q", header)
+            payload = data[pos + 12:pos + 12 + n]
+            if (struct.unpack("<I", data[pos + 8:pos + 12])[0] != _masked_crc(header)
+                    or struct.unpack("<I", data[pos + 12 + n:pos + 16 + n])[0] != _masked_crc(payload)):
+                raise AssertionError(f"{path}: a record's CRC does not match")
+            pos += 16 + n
+            event = fields(payload)
+            if 5 in event:
+                value = fields(fields(event[5])[1])
+                scalars.append((value[1].decode(), struct.unpack("<f", value[2])[0], event[2]))
+    return scalars
+
+
+def train_cli_run(tmp: Path, records: Path, dtype: str, epochs: int) -> dict:
+    """One `cli.train.main` run over the records in `tmp`; the conv12 launch
+    counts are reset just before it and read just after."""
+    from object_detection_torch2_tpu_torch.cli import train
+    from object_detection_torch2_tpu_torch.ops import conv12_cuda
+
+    argv = ["--records_dir", str(records / "train"), "--val_records_dir", str(records / "val"),
+            "--batch_size", str(BATCH), "--steps_per_epoch", str(CLI_STEPS), "--imsize", str(IMSIZE),
+            "--dtype", dtype, "--epochs", str(epochs), "--result_dir", str(tmp / "result"),
+            "--log_dir", str(tmp / "logs"), "--orbax_dir", str(tmp / "state"), "--val_aug", "none"]
+    conv12_cuda.launches = 0
+    conv12_cuda.kernel_launches.update(dict.fromkeys(conv12_cuda.kernel_launches, 0))
+    t0 = time.perf_counter()
+    out = train.main(argv)
+    out["main_s"] = time.perf_counter() - t0
+    out["conv12_kernel_launches"] = dict(conv12_cuda.kernel_launches)
+    return out
+
+
+def check_train_cli_run(tmp: Path, out: dict, dtype, epochs_before: int, epochs: int, card: str) -> dict:
+    """The run's conv12 launches, weights file, params.json, scalars and
+    phase_times.json."""
+    from object_detection_torch2_tpu_torch.models.convert import ssd_state_dict_from_jax_variables
+    from object_detection_torch2_tpu_torch.ops import conv12_cuda
+    from object_detection_torch2_tpu_torch.train.checkpoint import STATE_FILE, load_weights
+
+    name = str(dtype).replace("torch.", "")
+    kernel = conv12_cuda.KERNEL_OF[dtype]
+    want = epochs * (CLI_STEPS + VAL_RECORDS // BATCH)
+    got = out["conv12_kernel_launches"]
+    if got[kernel] != want or sum(got.values()) != want:
+        raise AssertionError(f"training CLI {name}: conv12 launches {got}, expected {want} of {kernel}")
+    params = json.loads((tmp / "result" / "detection" / "params.json").read_text())
+    if params["base_lr"] != 0.001 or params["steps_per_epoch"] != CLI_STEPS or not np.isfinite(params["min_loss"]):
+        raise AssertionError(f"training CLI {name}: params.json {params}")
+    state = torch.load(tmp / "state" / str(CLI_STEPS * params["last_epoch"]) / STATE_FILE, map_location="cpu",
+                       weights_only=True)
+    saved = ssd_state_dict_from_jax_variables(load_weights(tmp / "result" / "detection" / "weights.msgpack"))
+    for key, v in state["model"].items():
+        if not key.endswith("num_batches_tracked") and not torch.equal(saved[key], v):
+            raise AssertionError(f"training CLI {name}: weights.msgpack does not give back {key} bit-equal")
+    last = epochs_before + epochs
+    scalars = [(t, s) for t, _, s in read_scalars(tmp / "logs") if epochs_before < s <= last]
+    want_scalars = [(t, e) for e in range(epochs_before + 1, last + 1) for t in ("loss/train", "loss/validation", "lr")]
+    if scalars != want_scalars:
+        raise AssertionError(f"training CLI {name}: scalars {scalars}")
+    rows = json.loads((tmp / "logs" / "phase_times.json").read_text())
+    if [r["epoch"] for r in rows] != list(range(epochs_before + 1, last + 1)):
+        raise AssertionError(f"training CLI {name}: phase_times.json {rows}")
+    losses = torch.cat(out["losses"]).float().cpu()
+    if not bool(torch.isfinite(losses).all()):
+        raise AssertionError(f"training CLI {name}: non-finite loss {losses.tolist()}")
+    row = rows[-1]
+    print(f"training CLI {name} bs{BATCH} epochs {epochs_before + 1}-{last}: conv12 launches {got[kernel]} "
+          f"({kernel}), weights file bit-equal to the full state of epoch {params['last_epoch']}, params.json, "
+          f"3 scalars an epoch, phase_times.json; last epoch train loop {row['img_per_s_train_loop']} img/s, wall "
+          f"{row['img_per_s_wall']} img/s (train {row['train_s']} s, val {row['val_s']} s, save {row['save_s']} s); "
+          f"main() {out['main_s']:.1f} s ({card})")
+    return {"conv12_kernel_launches": got, "losses": losses.tolist(), "val_losses": out["val_losses"],
+            "phase_times": rows, "main_s": out["main_s"], "params": params}
+
+
+def phase_train_cli(card: str) -> dict:
+    """The training CLI on numpy-written records at batch 32: the bfloat16
+    resume check, then a float32 run."""
+    from object_detection_torch2_tpu_torch.train.checkpoint import STATE_FILE
+
+    rng = np.random.default_rng(55)
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        for split, n in (("train", TRAIN_RECORDS), ("val", VAL_RECORDS)):
+            write_records(tmp / "records" / split, rng.integers(0, 256, (n, IMSIZE, IMSIZE, 3), dtype=np.uint8),
+                          synth_targets(rng, n, rng.integers(1, G_PAD + 1, n), G_PAD))
+        deterministic = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            a, b = tmp / "resumed", tmp / "straight"
+            first = train_cli_run(a, tmp / "records", "bfloat16", 2)
+            runs = {"first": check_train_cli_run(a, first, torch.bfloat16, 0, 2, card)}
+            resumed = train_cli_run(a, tmp / "records", "bfloat16", 1)
+            runs["resumed"] = check_train_cli_run(a, resumed, torch.bfloat16, 2, 1, card)
+            straight = train_cli_run(b, tmp / "records", "bfloat16", 3)
+            runs["straight"] = check_train_cli_run(b, straight, torch.bfloat16, 0, 3, card)
+        finally:
+            torch.backends.cudnn.deterministic = deterministic
+        step = 3 * CLI_STEPS
+        sa = torch.load(a / "state" / str(step) / STATE_FILE, map_location="cpu", weights_only=True)
+        sb = torch.load(b / "state" / str(step) / STATE_FILE, map_location="cpu", weights_only=True)
+        diffs = {k: float((v.float() - sb["model"][k].float()).abs().max()) for k, v in sa["model"].items()
+                 if not torch.equal(v, sb["model"][k])}
+        for i, st in sa["optimizer"]["state"].items():
+            for key in ("exp_avg", "exp_avg_sq", "step"):
+                if not torch.equal(st[key], sb["optimizer"]["state"][i][key]):
+                    diffs[f"adam {i} {key}"] = float((st[key] - sb["optimizer"]["state"][i][key]).abs().max())
+        same_losses = torch.equal(torch.cat(resumed["losses"]).cpu(), straight["losses"][2].cpu())
+        same_weights = ((a / "result" / "detection" / "weights.msgpack").read_bytes()
+                        == (b / "result" / "detection" / "weights.msgpack").read_bytes())
+        if diffs or not same_losses or not same_weights or sa["step"] != sb["step"]:
+            raise AssertionError(f"resumed bfloat16 run differs from the straight one: losses equal {same_losses}, "
+                                 f"weights files equal {same_weights}, state max |d| {diffs}")
+        res["bfloat16"] = {**runs, "resume_bit_equal": True, "cudnn_deterministic": True}
+        print(f"training CLI bfloat16: 2 epochs + 1 resumed from the full state bit-equal to 3 straight (epoch-3 "
+              f"losses, weights, BN statistics, Adam moments and step, weights files), cuDNN deterministic ({card})")
+
+        c = tmp / "float32"
+        out = train_cli_run(c, tmp / "records", "float32", 2)
+        res["float32"] = check_train_cli_run(c, out, torch.float32, 0, 2, card)
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_inference_cli(card: str) -> dict:
+    """The inference CLI on 70 numpy-written records at batch 32: its PNGs
+    against the render of `Predictor`'s detections."""
+    from object_detection_torch2_tpu_torch.cli import inference
+    from object_detection_torch2_tpu_torch.data.labelmap import LabelMap
+    from object_detection_torch2_tpu_torch.infer import Predictor
+    from object_detection_torch2_tpu_torch.models.ssd import SSD
+    from object_detection_torch2_tpu_torch.ops import nms_cuda
+    from object_detection_torch2_tpu_torch.utils.render import render_detections_compact, require_pil
+
+    Image, _ = require_pil()
+    images = np.random.default_rng(9).integers(0, 256, (N_IMAGES, IMSIZE, IMSIZE, 3), dtype=np.uint8)
+    n_batches = -(-N_IMAGES // BATCH)
+    labelmap = LabelMap("PascalVOC")
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        write_records(tmp / "records", images, np.zeros((N_IMAGES, G_PAD, 25), np.float32))
+        for dtype in (torch.bfloat16, torch.float32):
+            name = str(dtype).replace("torch.", "")
+            argv = ["--records_dir", str(tmp / "records"), "--result_dir", str(tmp / name), "--batch_size",
+                    str(BATCH), "--imsize", str(IMSIZE), "--dtype", name]
+            nms_cuda.launches = 0
+            t0 = time.perf_counter()
+            out = inference.main(argv)
+            main_s = time.perf_counter() - t0
+            launches = nms_cuda.launches
+            if launches != n_batches:
+                raise AssertionError(f"inference CLI {name}: {launches} NMS launches for {n_batches} batches")
+            pngs = sorted((tmp / name / "detection").glob("*.png"))
+            if [p.name for p in pngs] != [f"{i:06}.png" for i in range(1, N_IMAGES + 1)]:
+                raise AssertionError(f"inference CLI {name}: {len(pngs)} PNGs, not 1..{N_IMAGES}")
+            dets = Predictor(SSD(num_classes=21, dtype=dtype, seed=0), imsize=IMSIZE, batch_size=BATCH).predict(images)
+            draw_s = 0.0
+            for k, (path, d) in enumerate(zip(pngs, dets)):
+                t0 = time.perf_counter()
+                want = render_detections_compact(images[k], d.boxes, d.class_ids + 1, d.scores, labelmap, IMSIZE)
+                draw_s += time.perf_counter() - t0
+                if not np.array_equal(np.asarray(Image.open(path).convert("RGB")), np.asarray(want)):
+                    raise AssertionError(f"inference CLI {name}: PNG {path.name} differs from the render of "
+                                         f"Predictor's detections")
+            batch_ms = out["batch_s"][1] * 1e3  # the second full batch: the first warms up
+            render_ms = statistics.median(out["render_s"][:N_IMAGES // BATCH]) * 1e3
+            img_s = N_IMAGES / main_s
+            draw_ms = draw_s / N_IMAGES * BATCH * 1e3
+            drawn = int(np.mean([(d.scores > 0).sum() for d in dets]))
+            res[name] = {"launches": launches, "main_s": main_s, "img_per_s": img_s, "batch_ms": batch_ms,
+                         "render_ms_per_batch": render_ms, "draw_ms_per_batch": draw_ms, "boxes_per_image": drawn,
+                         "batch_s": out["batch_s"], "render_s": out["render_s"]}
+            print(f"inference CLI {name} bs{BATCH}: {N_IMAGES} PNGs, NMS launches {launches}, every PNG pixel-equal "
+                  f"to the render of Predictor's detections; main() {main_s:.2f} s = {img_s:.1f} img/s; a full "
+                  f"batch {batch_ms:.2f} ms to its rows on the host, render + save {render_ms:.1f} ms on the host "
+                  f"(drawing alone {draw_ms:.1f} ms, {drawn} boxes an image) ({card})")
+    return res
+
+
+def conv12_entry(conv: dict, training: dict, train_cli: dict) -> dict:
     """The kernels-line entry of conv12: the float32 kernel at the training
     path's shape in the top-level keys, the bfloat16 kernel (its own source)
-    beside them; each one's launches from the training main path."""
+    beside them; each one's launches summed over the training main path and
+    the training CLI's runs."""
     def keys(r, dtype):
         name = "conv12" if dtype == "float32" else "conv12_bf16"
+        runs = ([train_cli[dtype][k] for k in ("first", "resumed", "straight")] if dtype == "bfloat16"
+                else [train_cli[dtype]])
+        by_path = {"training": training[dtype]["conv12_kernel_launches"][name],
+                   "train_cli": sum(run["conv12_kernel_launches"][name] for run in runs)}
         return {"route": "cuda", "source": f"object_detection_torch2_tpu_torch/csrc/{name}.cu",
                 "replaces": "object_detection_torch2_tpu/ops/conv12_pallas.py:103",  # _kernel
-                "launches": training[dtype]["conv12_kernel_launches"][name],
+                "launches": sum(by_path.values()), "launches_by_path": by_path,
                 "max_abs_err": r["max_abs_err"], "within_tolerance": r["within_tolerance"],
                 "ms": r["kernel_ms"], "kernel_ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
                 "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
@@ -933,10 +1251,17 @@ def main(argv=None) -> int:
     entries = [kernel_entry(main_path, card)]
     results["main_path"] = main_path
     results["evaluation"] = phase_evaluation(card)
+    results["inference_cli"] = phase_inference_cli(card)
+    nms_paths = {path: sum(results[key][d]["launches"] for d in ("float32", "bfloat16"))
+                 for path, key in (("serving", "main_path"), ("evaluation", "evaluation"),
+                                   ("inference_cli", "inference_cli"))}
+    entries[0].update(launches=sum(nms_paths.values()), launches_by_path=nms_paths)
     results["conv12_vs_plain"] = phase_conv12(card)
     results["trajectory"] = phase_trajectory(card)
     results["training"] = phase_training(card)
-    entries.append(conv12_entry(results["conv12_vs_plain"], results["training"]))
+    results["augment"] = phase_augment(card)
+    results["train_cli"] = phase_train_cli(card)
+    entries.append(conv12_entry(results["conv12_vs_plain"], results["training"], results["train_cli"]))
     results["kernels"] = entries
     if args.out:
         args.out.parent.mkdir(parents=True, exist_ok=True)

@@ -17,6 +17,12 @@ With --profile it also prints, from a torch.profiler trace of one call
 each, the device time of every CUDA kernel that the NMS sweep at the main
 path's inputs and conv_1_2 in bfloat16 launch.
 
+With --train_step it also times `Trainer.train_step` at batch 32, G = 64,
+imsize 300 with the conv12 kernel and no augment, in float32 and bfloat16:
+the median host-clock ms of a step (each step ends in a synchronize) over 8
+steps after 2 warm-up steps, and the host syncs a step makes, counted by
+`torch.cuda.set_sync_debug_mode("warn")` over 2 more steps.
+
 Run versions in separate processes in turn (A, B, B, A) and compare within
 one call. Imports nothing of JAX.
 """
@@ -25,7 +31,10 @@ from __future__ import annotations
 
 import argparse
 import json
+import statistics
 import sys
+import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -90,11 +99,51 @@ def kernel_device_ms(fn) -> dict:
     return out
 
 
+def train_step_times() -> dict:
+    from object_detection_torch2_tpu_torch.core.anchors import default_boxes, feature_grids_for
+    from object_detection_torch2_tpu_torch.models.ssd import SSD
+    from object_detection_torch2_tpu_torch.train.optimizer import adam_torch
+    from object_detection_torch2_tpu_torch.train.trainer import Trainer
+
+    rng = np.random.default_rng(2024)
+    images = rng.integers(0, 256, (cs.BATCH, cs.IMSIZE, cs.IMSIZE, 3), dtype=np.uint8)
+    targets = cs.synth_targets(rng, cs.BATCH, rng.integers(1, cs.G_PAD + 1, cs.BATCH), cs.G_PAD)
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).replace("torch.", "")
+        trainer = Trainer(SSD(num_classes=21, dtype=dtype, seed=0, conv12_kernel=True),
+                          default_boxes=default_boxes(feature_grids_for(cs.IMSIZE)))
+        state = trainer.init_state(lambda ps: adam_torch(ps, 1e-3, weight_decay=5e-4))
+        step_s = []
+        for i in range(10):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            trainer.train_step(state, images, targets)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                for _ in range(2):
+                    trainer.train_step(state, images, targets)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        syncs = sum("synchroniz" in str(w.message).lower() and "prototype" not in str(w.message) for w in caught)
+        out[f"train_step_{name}_ms"] = statistics.median(step_s[2:]) * 1e3
+        out[f"train_step_{name}_host_syncs"] = syncs / 2
+        del trainer, state
+        torch.cuda.empty_cache()
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", type=Path, default=Path(__file__).resolve().parent)
     ap.add_argument("--label", default="")
     ap.add_argument("--profile", action="store_true")
+    ap.add_argument("--train_step", action="store_true")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("kernel_times: no CUDA device is available")
@@ -118,6 +167,8 @@ def main(argv=None) -> int:
                 res[f"profile_nms_p{p}_{case}"] = kernel_device_ms(
                     lambda: nms_cuda.nms_keep_sorted_cuda(b4, v4, cs.IOU_THRESH))
         res["profile_conv12_bfloat16"] = kernel_device_ms(lambda: conv12_cuda.conv12_cuda(x, w, b))
+    if args.train_step:
+        res.update(train_step_times())
     print(json.dumps(res))
     return 0
 

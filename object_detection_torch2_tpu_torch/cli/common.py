@@ -25,8 +25,9 @@ from object_detection_torch2_tpu_torch.models.convert import (
 from object_detection_torch2_tpu_torch.models.ssd import SSD
 from object_detection_torch2_tpu_torch.train import checkpoint as ckpt
 
-# reference data roots were hardcoded (reference: train.py:43, 50); here the test
-# root is the default of --data_dirs
+# reference data roots were hardcoded (reference: train.py:43, 50); here they
+# are the defaults of --data_dirs
+DEFAULT_TRAIN_DIRS = ["/work/data/VOCdevkit/VOC2007", "/work/data/VOCdevkit/VOC2012"]
 DEFAULT_TEST_DIRS = ["/work/data/VOCdevkit/VOC2007"]
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -94,7 +95,7 @@ def check_int8(args):
             raise NotImplementedError(f"--{flag}: int8 serving is not ported yet (ROADMAP Queue 1 F)")
 
 
-def build_ssd(args, weights_path: Path):
+def build_ssd(args, weights_path: Path, conv12_kernel: bool | None = None):
     """(SSD holding its weights, labelmap), in the reference's auto-load order
     (reference: ssd.py:25, 79-84):
 
@@ -107,10 +108,11 @@ def build_ssd(args, weights_path: Path):
 
     The seeded init is the port's own (`SSD(seed=0)`, torch's generator):
     the JAX package's `PRNGKey(0)` init cannot be reproduced in torch, so the
-    two packages' untrained models differ.
+    two packages' untrained models differ. `conv12_kernel` is the SSD's
+    (True: conv_1_2 on the hand-written kernel on the card).
     """
     labelmap = LabelMap("PascalVOC")
-    model = SSD(num_classes=len(labelmap) + 1, dtype=DTYPES[args.dtype], seed=0)
+    model = SSD(num_classes=len(labelmap) + 1, dtype=DTYPES[args.dtype], seed=0, conv12_kernel=conv12_kernel)
     if weights_path.exists():
         print("weights loaded.")
         variables = ckpt.load_weights(weights_path)

@@ -23,6 +23,7 @@ TPU's paired-lane `fold` layout is not ported.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -46,7 +47,9 @@ class BatchNorm(nn.Module):
         if use_batch_stats:
             xf = x.float()
             if mask is None:
-                n = torch.tensor(float(x.numel() // x.shape[1]), device=x.device)
+                # the count is a host number: a tensor made from it on the
+                # card would be a blocking copy, a host sync per layer
+                n = np.float32(x.numel() // x.shape[1])
                 mean = xf.mean(dim=dims)
                 mean_sq = xf.square().mean(dim=dims)
             else:
@@ -58,7 +61,10 @@ class BatchNorm(nn.Module):
             var = torch.clamp(mean_sq - mean.square(), min=0.0)
             if self.training:
                 with torch.no_grad():
-                    unbiased = var * (n / torch.clamp(n - 1, min=1.0))
+                    # n / max(n - 1, 1) in float32, on the host or the device
+                    correction = (float(n / max(n - np.float32(1), np.float32(1))) if mask is None
+                                  else n / torch.clamp(n - 1, min=1.0))
+                    unbiased = var * correction
                     keep = 1.0 - self.momentum
                     self.running_mean.copy_(keep * self.running_mean + self.momentum * mean)
                     self.running_var.copy_(keep * self.running_var + self.momentum * unbiased)

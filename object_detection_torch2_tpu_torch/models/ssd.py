@@ -105,11 +105,12 @@ def normalize_image(x: torch.Tensor) -> torch.Tensor:
     """(x - mean) / std per channel, NHWC, in float32 (reference: vgg16.py:103-115).
 
     Multiplies by the float32 reciprocal of std, as XLA compiles the JAX
-    package's division by a constant."""
+    package's division by a constant. The constants reach the card by copies
+    that do not wait for it (no host sync)."""
     x = x.to(torch.float32)
-    mean = torch.tensor(IMAGENET_MEAN, dtype=torch.float32, device=x.device)
+    mean = torch.tensor(IMAGENET_MEAN, dtype=torch.float32).to(x.device, non_blocking=True)
     inv_std = 1.0 / torch.tensor(IMAGENET_STD, dtype=torch.float32)
-    return (x - mean) * inv_std.to(x.device)
+    return (x - mean) * inv_std.to(x.device, non_blocking=True)
 
 
 class SSD(nn.Module):

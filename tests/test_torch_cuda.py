@@ -254,3 +254,108 @@ def test_detection_matches_on_card_equal_cpu(card, ties):
     for key in want:
         assert got[key].device.type == "cuda" and got[key].dtype == want[key].dtype
         assert torch.equal(got[key].cpu(), want[key]), key
+
+
+def _augment_case(n, h, w, seed):
+    """Seeded uint8 images, GTs with real and zero rows, and one draw set."""
+    from object_detection_torch2_tpu_torch.data import augment
+
+    rng = np.random.default_rng(seed)
+    images = torch.from_numpy(rng.integers(0, 256, (n, h, w, 3), dtype=np.uint8))
+    gts = np.zeros((n, 8, 25), np.float32)
+    gts[:, :5, :4] = rng.uniform(0.1, 0.9, (n, 5, 4))
+    gts[:, :5, 5] = 1.0
+    draws = augment.sample_augment_draws(torch.Generator().manual_seed(seed), n, h, w, p_jitter=1.0)
+    return images, torch.from_numpy(gts), draws
+
+
+def augment_within_tolerance(got, want):
+    """float32: max |d| <= 2e-6; bfloat16: each element within 1 bfloat16
+    ulp of want's magnitude (the CPU tests' tolerances against the JAX
+    package)."""
+    d = (got.float() - want.float()).abs()
+    if got.dtype == torch.float32:
+        return float(d.max()) <= 2e-6
+    ulp = torch.exp2(torch.floor(torch.log2(want.float().abs().clamp_min(2.0 ** -126))) - 7)
+    return bool((d <= ulp).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("order", [0, 7, 23])
+def test_augment_on_card_equals_cpu(card, dtype, order):
+    """The same draws on the same images: GTs and erased pixels equal, the
+    pixels within the CPU tests' tolerance."""
+    from object_detection_torch2_tpu_torch.data import augment
+
+    images, gts, draws = _augment_case(4, 64, 80, seed=order)
+    draws.order = order
+    want_img, want_gts = augment.apply_augment(images, gts, draws, dtype)
+    got_img, got_gts = augment.apply_augment(images.to(card), gts.to(card), draws, dtype)
+    assert got_img.device.type == "cuda" and got_img.dtype == dtype
+    assert torch.equal(got_gts.cpu(), want_gts)
+    assert bool((got_img.cpu()[augment._erase_mask(draws, 64, 80, "cpu")] == 0).all())
+    assert augment_within_tolerance(got_img.cpu(), want_img)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_augmented_train_step_on_card(card, dtype):
+    """Trainer(augment=True) on the card: each step launches the dtype's
+    conv12 kernel once and waits on the card nowhere (sync debug mode
+    "error" around the steps after the first)."""
+    from object_detection_torch2_tpu_torch.core.anchors import default_boxes, feature_grids_for
+    from object_detection_torch2_tpu_torch.train.optimizer import adam_torch
+    from object_detection_torch2_tpu_torch.train.trainer import Trainer
+
+    trainer = Trainer(SSD(num_classes=21, dtype=dtype, conv12_kernel=True),
+                      default_boxes=default_boxes(feature_grids_for(264)), augment=True, device=card)
+    state = trainer.init_state(lambda ps: adam_torch(ps, 1e-3, weight_decay=5e-4))
+    rng = np.random.default_rng(3)
+    images = rng.integers(0, 256, (3, 2, 264, 264, 3), dtype=np.uint8)
+    targets = np.zeros((3, 2, 8, 25), np.float32)
+    targets[..., :2, :4] = rng.uniform(0.2, 0.6, (3, 2, 2, 4))
+    targets[..., :2, 7] = 1.0
+    before = dict(conv12_cuda.kernel_launches)
+    losses = [trainer.train_step(state, images[0], targets[0])]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        losses += [trainer.train_step(state, images[i], targets[i]) for i in (1, 2)]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    name = conv12_cuda.KERNEL_OF[dtype]
+    assert conv12_cuda.kernel_launches[name] - before[name] == 3
+    assert all(bool(torch.isfinite(l)) for l in losses) and state.step == 3
+
+
+def test_render_of_card_pipeline_detections(card, tmp_path):
+    """cli.inference on the card over numpy-written records: each PNG equals
+    the render of the card pipeline's detections for that image."""
+    import json
+
+    from PIL import Image
+
+    from object_detection_torch2_tpu_torch.cli import common, inference
+    from object_detection_torch2_tpu_torch.data.labelmap import LabelMap
+    from object_detection_torch2_tpu_torch.infer import build_detection_pipeline, unpack_detections
+    from object_detection_torch2_tpu_torch.utils.render import render_detections_compact
+
+    images = np.random.default_rng(4).integers(0, 256, (3, 264, 264, 3), dtype=np.uint8)
+    rec = tmp_path / "rec"
+    rec.mkdir()
+    np.save(rec / "images.npy", images)
+    np.save(rec / "gts.npy", np.zeros((3, 4, 25), np.float32))
+    (rec / "meta.json").write_text(json.dumps({"imsize": 264, "max_gt": 4, "count": 3, "purpose": "detection"}))
+    before = nms_cuda.launches
+    out = inference.main(["--records_dir", str(rec), "--result_dir", str(tmp_path / "res"), "--imsize", "264",
+                          "--batch_size", "2", "--dtype", "float32"])
+    assert nms_cuda.launches - before == 2 and len(out["paths"]) == 3
+    run = build_detection_pipeline(SSD(num_classes=21, seed=0), True, 264, device=card)
+    labelmap = LabelMap("PascalVOC")
+    for start in (0, 2):
+        chunk = images[start:start + 2]
+        packed, _ = run(common.pad_rows(chunk, 2), len(chunk))
+        boxes, classes, scores = unpack_detections(packed.cpu().numpy())
+        for i in range(len(chunk)):
+            want = render_detections_compact(chunk[i], boxes[i], classes[i], scores[i], labelmap, 264)
+            got = Image.open(out["paths"][start + i]).convert("RGB")
+            assert np.array_equal(np.asarray(got), np.asarray(want)), start + i

@@ -3,12 +3,15 @@ interpreter imports every module of the port, chip_smoke.py and
 kernel_times.py) and not in its
 sources (an AST scan of every import statement). Importing it also loads
 none of the packages it does not depend on (PIL, msgpack, tqdm); PIL is
-imported only inside the raw-VOC functions that decode images."""
+imported only inside the functions that decode images (the raw-VOC dataset)
+or draw them (utils/render.py)."""
 
 import ast
 import subprocess
 import sys
 from pathlib import Path
+
+import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "object_detection_torch2_tpu_torch"
@@ -32,7 +35,8 @@ def _forbidden(name: str) -> bool:
 
 def test_import_pulls_in_no_jax():
     mods = _port_modules() + ["chip_smoke", "kernel_times"]
-    assert "object_detection_torch2_tpu_torch.cli.evaluate" in mods
+    for cli in ("evaluate", "train", "inference"):
+        assert f"object_detection_torch2_tpu_torch.cli.{cli}" in mods
     # `import torch` itself tries tqdm (torch.hub) and goes on without it, so
     # those count only when the port's imports load them
     code = (
@@ -67,9 +71,29 @@ def test_sources_import_no_jax():
             assert not bad, f"{path.relative_to(ROOT)}:{node.lineno} imports {bad}"
 
 
+@pytest.mark.parametrize("cli", ["train", "inference"])
+def test_cli_import_loads_no_pil_tqdm_or_msgpack(cli):
+    """Importing a CLI alone (as `python -m` does) loads none of PIL, tqdm or
+    msgpack: the inference CLI imports PIL only when it runs, the training
+    CLI has no progress bar and writes weights with the port's own codec."""
+    code = (
+        "import importlib, sys\n"
+        "import torch\n"
+        "by_torch = set(sys.modules)\n"
+        f"importlib.import_module('object_detection_torch2_tpu_torch.cli.{cli}')\n"
+        "bad = sorted(m for m in set(sys.modules) - by_torch\n"
+        f"             if any(m == f or m.startswith(f + '.') for f in {NOT_DEPENDED_ON!r}))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
 def test_pil_only_inside_raw_voc_functions():
     """PIL is imported only inside a function of data/voc.py (the raw-VOC
-    decode), never at a module's top level."""
+    decode) or of utils/render.py (the drawing), never at a module's top
+    level."""
     seen = []
     for path in sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "kernel_times.py"]:
         tree = ast.parse(path.read_text(), str(path))
@@ -84,6 +108,7 @@ def test_pil_only_inside_raw_voc_functions():
                 continue
             if any(n == "PIL" or n.startswith("PIL.") for n in names):
                 where = f"{path.relative_to(ROOT)}:{node.lineno}"
-                assert path == PORT / "data" / "voc.py" and id(node) in inside, f"{where} imports PIL"
+                allowed = (PORT / "data" / "voc.py", PORT / "utils" / "render.py")
+                assert path in allowed and id(node) in inside, f"{where} imports PIL"
                 seen.append(where)
-    assert seen, "the raw-VOC decode no longer imports PIL"
+    assert len(seen) == 2, f"PIL is expected in the raw-VOC decode and the drawing, found {seen}"

@@ -314,7 +314,7 @@ def test_trainer_refusals():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             Trainer(model, default_boxes=df)
-    for kwargs in ({"augment": True}, {"mesh": object()}, {"quant": {}}, {"loss_kind": "cross_entropy"}):
+    for kwargs in ({"mesh": object()}, {"quant": {}}, {"loss_kind": "cross_entropy"}):
         with pytest.raises(NotImplementedError):
             Trainer(model, default_boxes=df, device="cpu", **kwargs)
     with pytest.raises(ValueError):
