@@ -21,7 +21,18 @@ With --train_step it also times `Trainer.train_step` at batch 32, G = 64,
 imsize 300 with the conv12 kernel and no augment, in float32 and bfloat16:
 the median host-clock ms of a step (each step ends in a synchronize) over 8
 steps after 2 warm-up steps, and the host syncs a step makes, counted by
-`torch.cuda.set_sync_debug_mode("warn")` over 2 more steps.
+`torch.cuda.set_sync_debug_mode("warn")` over 2 more steps; then the same
+step with `torch.backends.cudnn.deterministic` off and on, in turns (off,
+on, on, off; 8 timed steps each), for the cost of an exact resume.
+
+With --ops it times each kernel through its `torch.library` custom op
+(`torch.ops.odt.*`, ops/registry.py) against its direct ctypes wrapper, in
+turns (direct, op, op, direct), at the main path's shapes: CUDA-event ms per
+call, and the host's µs to enqueue a call (20 calls, no synchronize).
+
+With --fetch it times evaluation (`cli.evaluate.accumulate`, bfloat16 SSD,
+batch 32, 8 batches of seeded images with no ground truth) with the fetch
+pipeline at depth 0 and depth 2, in turns (0, 2, 2, 0), host clock.
 
 Run versions in separate processes in turn (A, B, B, A) and compare within
 one call. Imports nothing of JAX.
@@ -99,7 +110,9 @@ def kernel_device_ms(fn) -> dict:
     return out
 
 
-def train_step_times() -> dict:
+def _train_setup(dtype):
+    """(trainer, state, images, targets) of the timed train step: SSD300 with
+    the conv12 kernel at batch 32, G = 64, imsize 300, seeded."""
     from object_detection_torch2_tpu_torch.core.anchors import default_boxes, feature_grids_for
     from object_detection_torch2_tpu_torch.models.ssd import SSD
     from object_detection_torch2_tpu_torch.train.optimizer import adam_torch
@@ -108,19 +121,30 @@ def train_step_times() -> dict:
     rng = np.random.default_rng(2024)
     images = rng.integers(0, 256, (cs.BATCH, cs.IMSIZE, cs.IMSIZE, 3), dtype=np.uint8)
     targets = cs.synth_targets(rng, cs.BATCH, rng.integers(1, cs.G_PAD + 1, cs.BATCH), cs.G_PAD)
+    trainer = Trainer(SSD(num_classes=21, dtype=dtype, seed=0, conv12_kernel=True),
+                      default_boxes=default_boxes(feature_grids_for(cs.IMSIZE)))
+    return trainer, trainer.init_state(lambda ps: adam_torch(ps, 1e-3, weight_decay=5e-4)), images, targets
+
+
+def _step_ms(trainer, state, images, targets, steps: int = 10, warmup: int = 2) -> list:
+    """Host-clock ms of each step after `warmup`, each step synchronized."""
+    out = []
+    for i in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.train_step(state, images, targets)
+        torch.cuda.synchronize()
+        if i >= warmup:
+            out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def train_step_times() -> dict:
     out = {}
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).replace("torch.", "")
-        trainer = Trainer(SSD(num_classes=21, dtype=dtype, seed=0, conv12_kernel=True),
-                          default_boxes=default_boxes(feature_grids_for(cs.IMSIZE)))
-        state = trainer.init_state(lambda ps: adam_torch(ps, 1e-3, weight_decay=5e-4))
-        step_s = []
-        for i in range(10):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            trainer.train_step(state, images, targets)
-            torch.cuda.synchronize()
-            step_s.append(time.perf_counter() - t0)
+        trainer, state, images, targets = _train_setup(dtype)
+        step_ms = _step_ms(trainer, state, images, targets)
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
             torch.cuda.set_sync_debug_mode("warn")
@@ -131,11 +155,93 @@ def train_step_times() -> dict:
                 torch.cuda.set_sync_debug_mode("default")
         torch.cuda.synchronize()
         syncs = sum("synchroniz" in str(w.message).lower() and "prototype" not in str(w.message) for w in caught)
-        out[f"train_step_{name}_ms"] = statistics.median(step_s[2:]) * 1e3
+        out[f"train_step_{name}_ms"] = statistics.median(step_ms)
         out[f"train_step_{name}_host_syncs"] = syncs / 2
         del trainer, state
         torch.cuda.empty_cache()
     return out
+
+
+def deterministic_ab() -> dict:
+    """The train step with cuDNN's deterministic algorithms off and on, in
+    turns, both dtypes: median host-clock ms of 8 steps each."""
+    out = {}
+    saved = torch.backends.cudnn.deterministic
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).replace("torch.", "")
+        trainer, state, images, targets = _train_setup(dtype)
+        times = {False: [], True: []}
+        try:
+            for det in (False, True, True, False):
+                torch.backends.cudnn.deterministic = det
+                times[det] += _step_ms(trainer, state, images, targets)
+        finally:
+            torch.backends.cudnn.deterministic = saved
+        off, on = (statistics.median(times[d]) for d in (False, True))
+        out[f"train_step_{name}_ms_cudnn_nondeterministic"] = off
+        out[f"train_step_{name}_ms_cudnn_deterministic"] = on
+        out[f"train_step_{name}_deterministic_cost"] = on / off - 1.0
+        del trainer, state
+        torch.cuda.empty_cache()
+    return out
+
+
+def ops_ab(sb, sv) -> dict:
+    """Each kernel through its custom op against its direct ctypes wrapper, in
+    turns: CUDA-event ms a call and the host's µs to enqueue one."""
+    from object_detection_torch2_tpu_torch.ops import conv12_cuda, nms_cuda, registry
+
+    def enqueue_us(fn, n=20):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        t = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        return t / n * 1e6
+
+    cases = {"nms_main_path": (lambda: nms_cuda.nms_keep_sorted_cuda(sb, sv, cs.IOU_THRESH),
+                               lambda: registry.nms_keep_sorted(sb, sv, cs.IOU_THRESH))}
+    for seed, dtype in enumerate((torch.float32, torch.bfloat16)):
+        x, w, b = cs.conv12_case(cs.CONV12_SHAPE, dtype, seed)
+        cases[f"conv12_{str(dtype).replace('torch.', '')}"] = (
+            lambda x=x, w=w, b=b: conv12_cuda.conv12_cuda(x, w, b), lambda x=x, w=w, b=b: registry.conv12(x, w, b, None))
+    out = {}
+    for name, (direct, op) in cases.items():
+        ms = {"direct": [], "op": []}
+        us = {"direct": [], "op": []}
+        for route in ("direct", "op", "op", "direct"):
+            fn = direct if route == "direct" else op
+            ms[route].append(cs.time_ms(fn, reps=10, trials=3))
+            us[route].append(enqueue_us(fn))
+        for route in ms:
+            out[f"{name}_{route}_ms"] = statistics.mean(ms[route])
+            out[f"{name}_{route}_enqueue_us"] = statistics.mean(us[route])
+        out[f"{name}_op_overhead_us"] = out[f"{name}_op_enqueue_us"] - out[f"{name}_direct_enqueue_us"]
+    return out
+
+
+def fetch_ab() -> dict:
+    """Evaluation with the fetch pipeline at depth 0 and depth 2, in turns:
+    img/s (host clock) over 8 batches of 32."""
+    from object_detection_torch2_tpu_torch.cli import evaluate
+    from object_detection_torch2_tpu_torch.models.ssd import SSD
+
+    rng = np.random.default_rng(12)
+    batches = [(rng.integers(0, 256, (cs.BATCH, cs.IMSIZE, cs.IMSIZE, 3), dtype=np.uint8),
+                np.zeros((cs.BATCH, cs.G_PAD, 25), np.float32)) for _ in range(8)]
+    run = evaluate.build_eval_pipeline(SSD(num_classes=21, dtype=torch.bfloat16, seed=0), True, cs.IMSIZE, 20,
+                                       device=cs.DEVICE)
+    evaluate.accumulate(run, batches, cs.BATCH, 20, 200)
+    times = {0: [], 2: []}
+    for depth in (0, 2, 2, 0, 0, 2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        evaluate.accumulate(run, batches, cs.BATCH, 20, 200, fetch_depth=depth)
+        times[depth].append(time.perf_counter() - t0)
+    return {f"eval_img_per_s_fetch_depth_{d}": len(batches) * cs.BATCH / statistics.median(t)
+            for d, t in times.items()}
 
 
 def main(argv=None) -> int:
@@ -144,6 +250,8 @@ def main(argv=None) -> int:
     ap.add_argument("--label", default="")
     ap.add_argument("--profile", action="store_true")
     ap.add_argument("--train_step", action="store_true")
+    ap.add_argument("--ops", action="store_true")
+    ap.add_argument("--fetch", action="store_true")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("kernel_times: no CUDA device is available")
@@ -169,6 +277,11 @@ def main(argv=None) -> int:
         res["profile_conv12_bfloat16"] = kernel_device_ms(lambda: conv12_cuda.conv12_cuda(x, w, b))
     if args.train_step:
         res.update(train_step_times())
+        res.update(deterministic_ab())
+    if args.ops:
+        res.update(ops_ab(sb, sv))
+    if args.fetch:
+        res.update(fetch_ab())
     print(json.dumps(res))
     return 0
 

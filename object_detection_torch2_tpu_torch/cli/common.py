@@ -4,7 +4,7 @@
 The flags and their defaults are the JAX package's. Options whose code is not
 ported yet raise NotImplementedError naming their ROADMAP item: multi-process
 serving (`--distributed`) and a data-parallel mesh (`--num_devices` above 1)
-wait for Queue 1 G, int8 serving (`--trunk_int8`, `--full_int8`) for
+wait for Queue 1 G2, int8 serving (`--trunk_int8`, `--full_int8`) for
 Queue 1 F. The JAX package's persistent XLA compile cache has no counterpart.
 """
 
@@ -47,7 +47,7 @@ def add_common_args(parser, batch_size_default: int):
     parser.add_argument("--dtype", type=str, choices=list(DTYPES), default="bfloat16")
     parser.add_argument("--max_gt", type=int, default=64)
     parser.add_argument("--num_devices", type=int, default=None,
-                        help="data-parallel devices; above 1 is not ported yet (ROADMAP Queue 1 G)")
+                        help="data-parallel devices; above 1 is not ported yet (ROADMAP Queue 1 G2)")
     parser.add_argument(
         "--bn_mode",
         choices=["batch", "running"],
@@ -68,14 +68,14 @@ def add_serving_args(parser):
     parser.add_argument("--calib_margin", type=float, default=1.25,
                         help="headroom factor on --full_int8 calibrated abs-maxes")
     parser.add_argument("--distributed", action="store_true",
-                        help="multi-process data-parallel serving; not ported yet (ROADMAP Queue 1 G)")
+                        help="multi-process data-parallel serving; not ported yet (ROADMAP Queue 1 G2)")
 
 
 def init_serving_distributed(args):
     """(process_index, process_count) of a serving run: one process.
     `--distributed` raises until the scale-out slice."""
     if getattr(args, "distributed", False):
-        raise NotImplementedError("--distributed: multi-process serving is not ported yet (ROADMAP Queue 1 G)")
+        raise NotImplementedError("--distributed: multi-process serving is not ported yet (ROADMAP Queue 1 G2)")
     return 0, 1
 
 
@@ -84,7 +84,7 @@ def serving_mesh(args):
     above 1 raises until the scale-out slice."""
     if args.num_devices is not None and args.num_devices > 1:
         raise NotImplementedError(f"--num_devices {args.num_devices}: data-parallel serving is not ported yet "
-                                  "(ROADMAP Queue 1 G)")
+                                  "(ROADMAP Queue 1 G2)")
     return None
 
 

@@ -16,12 +16,15 @@ either package), else as `cli.common.build_ssd` says. The run is on the CUDA
 card unless `--device cpu` is given; without a card it raises.
 
 Per batch, the device computes the forward, post-processing and matcher, and
-only the (N, C, K) match tensors come back to the host. The loop is
-sequential: the next batch is dispatched after this batch's matches reach
-the host (the loader's thread prefetches the input meanwhile). Not ported
-yet (ROADMAP Queue 1 G): --batches_per_dispatch above 1, --d2h_half, the
-overlapped fetch pipeline and multi-process evaluation; int8 serving waits for
-Queue 1 F.
+only the (N, C, K) match tensors come back to the host, through
+`utils.hostsync.FetchPipeline`: each batch's matches start their copy at
+dispatch and are accumulated two batches later, so the host's AP work and
+the copy overlap the next batches on the card. `--batches_per_dispatch K`
+runs K padded batches a call (each with its own batch statistics, as K calls
+would) and brings their matches back in one copy; the batches left over at
+the end run one at a time. `--d2h_half` copies the largest leaf, the match
+scores, as float16 (`correct` is already bool). Not ported yet: multi-process
+evaluation (ROADMAP Queue 1 G2); int8 serving waits for Queue 1 F.
 """
 
 from __future__ import annotations
@@ -41,6 +44,7 @@ from object_detection_torch2_tpu_torch.infer import build_detection_pipeline
 from object_detection_torch2_tpu_torch.metrics.ap import APAccumulator
 from object_detection_torch2_tpu_torch.metrics.assign import detection_matches
 from object_detection_torch2_tpu_torch.ops.scores import expand_detections
+from object_detection_torch2_tpu_torch.utils.hostsync import FetchPipeline
 from object_detection_torch2_tpu_torch.utils.report import write_report
 
 PROGRESS_EVERY = 10  # batches between progress lines
@@ -53,9 +57,11 @@ def parse_args(argv=None):
     parser.add_argument("--max_detections", type=int, default=200,
                         help="device-side top-K compaction bound (post-NMS survivors)")
     parser.add_argument("--batches_per_dispatch", type=int, default=1,
-                        help="batches per dispatch; above 1 is not ported yet (ROADMAP Queue 1 G)")
+                        help="evaluate K batches per call, their matches copied to the host at once "
+                             "(per-batch semantics unchanged; leftover batches run one at a time)")
     parser.add_argument("--d2h_half", action="store_true",
-                        help="fetch match scores as float16; not ported yet (ROADMAP Queue 1 G)")
+                        help="copy the match scores to the host as float16 (~5e-4 quantization); "
+                             "default float32 is bit-exact")
     parser.add_argument("--device", type=str, default=None,
                         help="torch device; default the CUDA card (raises without one), 'cpu' for the CPU")
     common.add_serving_args(parser)
@@ -63,7 +69,7 @@ def parse_args(argv=None):
 
 
 def build_eval_pipeline(model, use_batch_stats: bool, imsize: int, num_classes: int,
-                        max_detections: int = 200, device=None):
+                        max_detections: int = 200, device=None, d2h_half: bool = False):
     """-> run(images_u8 (N, H, W, 3) uint8, gts (N, G, 4 + 21), n_real) ->
     (detection_matches dict at K = max_detections rows, n_valid (N,)), both
     on `device`.
@@ -72,45 +78,80 @@ def build_eval_pipeline(model, use_batch_stats: bool, imsize: int, num_classes: 
     decode, scores, NMS, top-K), then the top-K rows in the post-NMS layout
     (`expand_detections`), the ground truth of pad rows (index >= n_real)
     zeroed, and `detection_matches`. device=None means the CUDA card, and
-    raises without one; pass "cpu" to run on the CPU."""
+    raises without one; pass "cpu" to run on the CPU.
+
+    run also takes K stacked batches — images (K, N, H, W, 3), gts
+    (K, N, G, 25), n_real (K,) — each with its own batch statistics, and
+    returns the results with a leading K axis. d2h_half casts the matches'
+    `scores` to float16 on the device."""
     device = resolve_device(device)
     detect = build_detection_pipeline(model, use_batch_stats, imsize, max_detections=max_detections, device=device)
 
-    @torch.inference_mode()
-    def run(images_u8, gts, n_real: int):
+    def body(images_u8, gts, n_real):
         packed, n_valid = detect(images_u8, n_real)
         boxes, classes, scores = packed[..., :4], packed[..., 4].to(torch.int64), packed[..., 5]
         compact = expand_detections(boxes, classes, scores, num_classes + 1)
-        gts = torch.as_tensor(gts).to(device)
         mask = (torch.arange(gts.shape[0], device=device) < n_real).to(gts.dtype)
-        return detection_matches(compact, gts * mask[:, None, None], num_classes=num_classes), n_valid
+        matches = detection_matches(compact, gts * mask[:, None, None], num_classes=num_classes)
+        if d2h_half:
+            matches = {**matches, "scores": matches["scores"].to(torch.float16)}
+        return matches, n_valid
+
+    @torch.inference_mode()
+    def run(images_u8, gts, n_real):
+        images_u8, gts = torch.as_tensor(images_u8).to(device), torch.as_tensor(gts).to(device)
+        if images_u8.dim() == 4:
+            return body(images_u8, gts, n_real)
+        outs = [body(images_u8[k], gts[k], int(r)) for k, r in enumerate(n_real)]
+        matches = {key: torch.stack([m[key] for m, _ in outs]) for key in outs[0][0]}
+        return matches, torch.stack([n for _, n in outs])
 
     return run
 
 
-def accumulate(run, loader, batch_size: int, num_classes: int, max_detections: int):
+def accumulate(run, loader, batch_size: int, num_classes: int, max_detections: int,
+               batches_per_dispatch: int = 1, fetch_depth: int = 2):
     """Every batch of `loader` through `run`, a ragged final batch padded to
-    `batch_size` (repeat-last rows, masked by n_real) -> (APAccumulator, True
-    if some image had more than max_detections survivors)."""
+    `batch_size` (repeat-last rows, masked by n_real), K = batches_per_dispatch
+    batches a call (the last < K one at a time), each call's results fetched
+    `fetch_depth` calls later -> (APAccumulator, True if some image had more
+    than max_detections survivors)."""
     acc = APAccumulator(num_classes)
     truncated = False
+    pipe = FetchPipeline(fetch_depth)
+    group: list = []
+
+    def drain(done):
+        nonlocal truncated
+        if done is None:
+            return
+        matches, n_valid = done
+        for k in range(n_valid.shape[0]):
+            acc.update({key: v[k] for key, v in matches.items()})
+        truncated |= int(n_valid.max()) > max_detections
+
     for i, (images_u8, gts) in enumerate(loader, start=1):
         real = images_u8.shape[0]
-        matches, n_valid = run(common.pad_rows(images_u8, batch_size),
-                               common.pad_rows(np.asarray(gts, np.float32), batch_size), real)
-        acc.update(matches)
-        truncated |= int(n_valid.max()) > max_detections
+        group.append((common.pad_rows(np.asarray(images_u8), batch_size),
+                      common.pad_rows(np.asarray(gts, np.float32), batch_size), real))
+        if len(group) == batches_per_dispatch:
+            drain(pipe.push(run(np.stack([g[0] for g in group]), np.stack([g[1] for g in group]),
+                                [g[2] for g in group])))
+            group = []
         if i % PROGRESS_EVERY == 0 or i == len(loader):
             print(f"evaluate: batch {i}/{len(loader)}", flush=True)
+    for images_u8, gts, real in group:  # leftover batches (< K), one at a time
+        matches, n_valid = run(images_u8, gts, real)
+        drain(pipe.push(({key: v[None] for key, v in matches.items()}, n_valid[None])))
+    for done in pipe.flush():
+        drain(done)
     return acc, truncated
 
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.batches_per_dispatch > 1:
-        raise NotImplementedError("--batches_per_dispatch above 1 is not ported yet (ROADMAP Queue 1 G)")
-    if args.d2h_half:
-        raise NotImplementedError("--d2h_half is not ported yet (ROADMAP Queue 1 G)")
+    if args.batches_per_dispatch < 1:
+        raise SystemExit(f"--batches_per_dispatch must be >= 1, got {args.batches_per_dispatch}")
     common.check_int8(args)
     common.init_serving_distributed(args)
     common.serving_mesh(args)
@@ -129,8 +170,9 @@ def main(argv=None):
         model, labelmap = common.build_ssd(args, out_dir / args.weights)
         num_classes = len(labelmap)
         run = build_eval_pipeline(model, args.bn_mode == "batch", args.imsize, num_classes,
-                                  args.max_detections, device=device)
-        acc, truncated = accumulate(run, loader, args.batch_size, num_classes, args.max_detections)
+                                  args.max_detections, device=device, d2h_half=args.d2h_half)
+        acc, truncated = accumulate(run, loader, args.batch_size, num_classes, args.max_detections,
+                                    args.batches_per_dispatch)
     finally:
         loader.close()
     if truncated:

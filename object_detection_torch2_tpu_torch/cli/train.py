@@ -1,5 +1,5 @@
-"""Training entry point (counterpart of object_detection_torch2_tpu/cli/train.py:39-500,
-detection purpose; reference: src/train.py:14-158).
+"""Training entry point (counterpart of object_detection_torch2_tpu/cli/train.py:39-500;
+reference: src/train.py:14-158).
 
     python -m object_detection_torch2_tpu_torch.cli.train --records_dir <dir> [--val_records_dir <dir>] [--device cpu]
 
@@ -23,19 +23,33 @@ The JAX CLI's flags, defaults, loop and artifacts:
   TensorBoard scalars loss/train, loss/validation and lr (utils/tb.py);
   `<log_dir>/phase_times.json`; the full state at `--orbax_interval` in
   `--orbax_dir` (train/checkpoint.py; an exact resume, quirk Q7 fixed). The
-  shuffle is anchored to the absolute epoch and the augment draws to the
-  step, so a resumed run trains as an uninterrupted one would.
+  shuffle is anchored to the absolute epoch and the augment and dropout
+  draws to the step, so a resumed run trains as an uninterrupted one would.
+  On the card that needs cuDNN's deterministic algorithms (its weight
+  gradients otherwise sum with atomics, in an order that changes from run to
+  run), so the CLI switches them on whenever `--orbax_dir` is given and
+  restores the caller's setting when it returns; the cost is in PERF.md §6;
+- `--purpose classification` (JAX cli/train.py:302-328): `VGG16(20,
+  transfer_learning=True)` (models/vgg16.py) on VOC object crops (or
+  classification records), weights from `<result_dir>/classification/`
+  when the file exists, the cross-entropy, and the trunk and the 20-way
+  head trained (`vgg_trainable_predicate(True)`; the dead 1000-way head
+  gets no Adam moments). Its weights file seeds the detection purpose's
+  trunk (`cli.common.build_ssd`);
+- `--device_cache` (needs `--records_dir`): the train and validation records
+  resident on the card, each batch gathered there (data/device_cache.py).
 
-conv_1_2 runs on the hand-written kernel (`SSD(conv12_kernel=True)`): on the
-H100 it is faster than cuDNN in both dtypes (PERF.md §6, row 2) and computes
-the same function within the tolerances the kernel is held to. The JAX CLI
-leaves its Pallas kernel off because on the TPU XLA's convolution wins.
+The detection purpose runs conv_1_2 on the hand-written kernel
+(`SSD(conv12_kernel=True)`): on the H100 it is faster than cuDNN in both
+dtypes (PERF.md §6, row 2) and computes the same function within the
+tolerances the kernel is held to. The JAX CLI leaves its Pallas kernel off
+because on the TPU XLA's convolution wins. VGG16 has no kernel of its own: the
+JAX package runs it on XLA's convolutions.
 
 The run is on the CUDA card unless `--device cpu` is given; without a card it
 raises. Not ported (they raise NotImplementedError naming their ROADMAP
-Queue 1 item): `--purpose classification` (E), `--trunk_int8` (F),
-`--distributed`, `--num_devices` above 1 and `--device_cache` (G). The JAX
-CLI's tqdm bar is a progress line here.
+Queue 1 item): `--trunk_int8` (F), `--distributed` and `--num_devices`
+above 1 (G2). The JAX CLI's tqdm bar is a progress line here.
 """
 
 from __future__ import annotations
@@ -53,6 +67,8 @@ from object_detection_torch2_tpu_torch.core.anchors import default_boxes, featur
 from object_detection_torch2_tpu_torch.data.loader import DataLoader
 from object_detection_torch2_tpu_torch.data.records import RecordDataset
 from object_detection_torch2_tpu_torch.data.voc import PascalVOCDataset
+from object_detection_torch2_tpu_torch.models.convert import vgg16_state_dict_from_jax_variables
+from object_detection_torch2_tpu_torch.models.vgg16 import VGG16, vgg_trainable_predicate
 from object_detection_torch2_tpu_torch.train import checkpoint as ckpt
 from object_detection_torch2_tpu_torch.train.optimizer import adam_torch, exponential_epoch_schedule
 from object_detection_torch2_tpu_torch.train.trainer import Trainer
@@ -64,8 +80,9 @@ PROGRESS_EVERY = 10  # steps between progress lines
 
 def parse_args(argv=None):
     parser = argparse.ArgumentParser()
-    parser.add_argument("--purpose", type=str, default="detection",
-                        help="'detection'; 'classification' is not ported yet (ROADMAP Queue 1 E)")
+    parser.add_argument("--purpose", choices=["detection", "classification"], default="detection",
+                        help="'detection' trains the SSD; 'classification' the VGG16 on VOC object crops "
+                             "(imsize ~184-215 gives its 7x7 grid, quirk Q10: use 200)")
     parser.add_argument("--epochs", type=int, default=1)
     parser.add_argument("--lr", type=float, default=None,
                         help="base learning rate (default 0.001). On a full-state resume an "
@@ -103,9 +120,10 @@ def parse_args(argv=None):
                         help="write checkpoints at most every N epochs (and always on the last); "
                              "improvement is tracked every epoch")
     parser.add_argument("--distributed", action="store_true",
-                        help="multi-process data-parallel training; not ported yet (ROADMAP Queue 1 G)")
+                        help="multi-process data-parallel training; not ported yet (ROADMAP Queue 1 G2)")
     parser.add_argument("--device_cache", action="store_true",
-                        help="the dataset resident on the device; not ported yet (ROADMAP Queue 1 G)")
+                        help="hold the packed records (train and validation) on the device and gather "
+                             "each batch there (data/device_cache.py); needs --records_dir, one process")
     parser.add_argument("--profile_dir", type=str, default=None,
                         help="write a torch.profiler trace of the first epoch (trace.json)")
     parser.add_argument("--debug_nans", action="store_true",
@@ -165,6 +183,10 @@ def _build_datasets(args):
     if args.records_dir:
         ds_train = RecordDataset(args.records_dir)
         ds_val = RecordDataset(args.val_records_dir) if args.val_records_dir else None
+        for ds in (ds_train, ds_val):
+            purpose = ds.meta.get("purpose", "detection") if ds is not None else args.purpose
+            if purpose != args.purpose:
+                raise SystemExit(f"--purpose {args.purpose}, but the records were packed for {purpose}")
     else:
         train_dirs = args.data_dirs or common.DEFAULT_TRAIN_DIRS
         val_dirs = (args.data_dirs or common.DEFAULT_TEST_DIRS)[:1]
@@ -174,17 +196,16 @@ def _build_datasets(args):
 
 
 def _check_unported(args):
-    if args.purpose != "detection":
-        raise NotImplementedError(f"--purpose {args.purpose}: only detection is ported (ROADMAP Queue 1 E)")
+    if args.device_cache and (args.distributed or not args.records_dir):
+        raise SystemExit("--device_cache requires --records_dir and is single-process "
+                         "(incompatible with --distributed)")
     if args.trunk_int8:
         raise NotImplementedError("--trunk_int8 is not ported yet (ROADMAP Queue 1 F)")
     if args.distributed:
-        raise NotImplementedError("--distributed: multi-process training is not ported yet (ROADMAP Queue 1 G)")
+        raise NotImplementedError("--distributed: multi-process training is not ported yet (ROADMAP Queue 1 G2)")
     if args.num_devices is not None and args.num_devices > 1:
         raise NotImplementedError(f"--num_devices {args.num_devices}: data-parallel training is not ported yet "
-                                  "(ROADMAP Queue 1 G)")
-    if args.device_cache:
-        raise NotImplementedError("--device_cache is not ported yet (ROADMAP Queue 1 G)")
+                                  "(ROADMAP Queue 1 G2)")
 
 
 def main(argv=None) -> dict:
@@ -197,28 +218,52 @@ def main(argv=None) -> dict:
     if args.debug_nans:
         enable_debug_nans()
     ds_train, ds_val = _build_datasets(args)
+    cache = {"device_cache": args.device_cache, "device": device}
     dl_train = DataLoader(ds_train, args.batch_size, shuffle=True, seed=args.seed, max_gt=args.max_gt,
-                          num_workers=args.num_workers, stack_steps=args.steps_per_dispatch)
-    dl_val = (DataLoader(ds_val, args.batch_size, max_gt=args.max_gt, num_workers=args.num_workers)
+                          num_workers=args.num_workers, stack_steps=args.steps_per_dispatch, **cache)
+    dl_val = (DataLoader(ds_val, args.batch_size, max_gt=args.max_gt, num_workers=args.num_workers, **cache)
               if ds_val else None)
+    # an exact resume on the card needs cuDNN's deterministic algorithms
+    deterministic = torch.backends.cudnn.deterministic
+    if args.orbax_dir:
+        torch.backends.cudnn.deterministic = True
     try:
         return _train(args, device, dl_train, dl_val)
     finally:
+        torch.backends.cudnn.deterministic = deterministic
         dl_train.close()
         if dl_val is not None:
             dl_val.close()
 
 
+def _build_trainer(args, device, weights_path: Path):
+    """(Trainer, is_trainable) of the purpose: the SSD with a frozen trunk
+    (or all of it with --train_trunk), or the VGG16 with its dead head
+    frozen."""
+    if args.purpose == "detection":
+        model, _ = common.build_ssd(args, weights_path, conv12_kernel=True)
+        trainer = Trainer(model, default_boxes=default_boxes(feature_grids_for(args.imsize)),
+                          use_batch_stats=args.bn_mode == "batch", augment=_aug_config(args.train_aug),
+                          seed=args.seed, device=device)
+        # reference parity: the VGG trunk is frozen (src/model/ssd.py:31-32,
+        # 160-179); --train_trunk unfreezes it
+        return trainer, (lambda name: True) if args.train_trunk else None
+    # transfer_learning=True selects the 20-way classifier2 head: the
+    # intended behaviour of the reference's classification purpose, which
+    # never ran as written (quirk Q12, JAX cli/train.py:302-313)
+    model = VGG16(num_classes=20, transfer_learning=True, dtype=common.DTYPES[args.dtype])
+    if weights_path.exists():
+        print("weights loaded.")
+        model.load_state_dict(vgg16_state_dict_from_jax_variables(ckpt.load_weights(weights_path)))
+    trainer = Trainer(model, loss_kind="cross_entropy", use_batch_stats=args.bn_mode == "batch",
+                      augment=_aug_config(args.train_aug), seed=args.seed, device=device)
+    return trainer, vgg_trainable_predicate(transfer_learning=True)
+
+
 def _train(args, device, dl_train, dl_val) -> dict:
     weights_path = Path(args.result_dir) / args.purpose / args.weights
     params_path = Path(args.result_dir) / args.purpose / args.params
-    model, _ = common.build_ssd(args, weights_path, conv12_kernel=True)
-    trainer = Trainer(model, default_boxes=default_boxes(feature_grids_for(args.imsize)),
-                      use_batch_stats=args.bn_mode == "batch", augment=_aug_config(args.train_aug),
-                      seed=args.seed, device=device)
-    # reference parity: the VGG trunk is frozen (src/model/ssd.py:31-32,
-    # 160-179); --train_trunk unfreezes it
-    is_trainable = (lambda name: True) if args.train_trunk else None
+    trainer, is_trainable = _build_trainer(args, device, weights_path)
 
     # resume surface (reference: train.py:85-95; quirk Q7: fresh optimizer state)
     params = ckpt.load_params_json(params_path)

@@ -11,9 +11,13 @@ Two sources:
 - any indexable dataset yielding (image, gt) — with `collate` padding, and
   `num_workers` spawned decode workers (data/ingest.py).
 
-Not ported yet (ROADMAP Queue 1 G, scale-out): a data-parallel `mesh`, the
-on-device dataset cache (`device_cache=True`) and multi-process loading;
-`mesh` and `device_cache` raise NotImplementedError.
+`device_cache=True` (a RecordDataset and drop_last only, as in the JAX
+package) uploads the dataset to `device` once (data/device_cache.py) and
+yields device tensors gathered there from the same shuffled, per-batch
+sorted indices: the same batches as streaming, bit for bit.
+
+Not ported yet (ROADMAP Queue 1 G2, scale-out): a data-parallel `mesh` and
+multi-process loading; `mesh` raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -40,13 +44,13 @@ class DataLoader:
         num_workers: int = 0,
         stack_steps: int = 1,
         device_cache: bool = False,
+        device=None,
     ):
+        """device: where `device_cache` keeps the dataset (None: the CUDA
+        card, raising without one; "cpu" for the CPU); unused without it."""
         if mesh is not None:
             raise NotImplementedError("DataLoader(mesh=...): data-parallel loading is not ported yet "
-                                      "(ROADMAP Queue 1 G)")
-        if device_cache:
-            raise NotImplementedError("DataLoader(device_cache=True): the on-device dataset cache is not "
-                                      "ported yet (ROADMAP Queue 1 G)")
+                                      "(ROADMAP Queue 1 G2)")
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -65,6 +69,15 @@ class DataLoader:
         # stack_steps=K groups K consecutive batches into (K, B, ...) stacks
         # (one dispatch per K steps); the final group of an epoch may be shorter
         self.stack_steps = max(1, int(stack_steps))
+        self._cache = None
+        if device_cache:
+            if not self._is_records:
+                raise ValueError("device_cache requires a packed RecordDataset (data/records.py)")
+            if not drop_last:
+                raise ValueError("device_cache requires drop_last=True (static batch shapes)")
+            from object_detection_torch2_tpu_torch.data.device_cache import DeviceCache
+
+            self._cache = DeviceCache(dataset, device)
 
     def __len__(self):
         n = len(self.dataset)
@@ -128,15 +141,37 @@ class DataLoader:
         if group:  # epoch tail: a shorter stack
             yield tuple(np.stack(parts) for parts in zip(*group))
 
+    def _cached_device_batches(self):
+        """device_cache: gathers on the device of the index sequence the
+        streaming path reads, each batch's indices sorted as the records read
+        sorts them — (K, B) stacks when stack_steps > 1 (the epoch's tail a
+        shorter stack), (B,) otherwise."""
+        group: list = []
+        for idx in self._index_batches():
+            idx = np.sort(idx)
+            if self.stack_steps == 1:
+                yield self._cache.gather(idx)
+                continue
+            group.append(idx)
+            if len(group) == self.stack_steps:
+                yield self._cache.gather(np.stack(group))
+                group = []
+        if group:
+            yield self._cache.gather(np.stack(group))
+
     def __iter__(self):
-        """Yield host (images, gts) — (K, B, ...) stacks when `stack_steps`
-        K > 1; a background thread keeps `prefetch` batches staged ahead, and
-        a failure in it is re-raised here."""
+        """Yield (images, gts): host arrays, or device tensors with the
+        device cache — (K, B, ...) stacks when `stack_steps` K > 1; a
+        background thread keeps `prefetch` batches staged ahead, and a
+        failure in it is re-raised here."""
         self.epoch += 1
         q: queue.Queue = queue.Queue(maxsize=self.prefetch)
         sentinel = object()
         failure: list[BaseException] = []
-        source = self._stacked_host_batches if self.stack_steps > 1 else self._host_batches
+        if self._cache is not None:
+            source = self._cached_device_batches
+        else:
+            source = self._stacked_host_batches if self.stack_steps > 1 else self._host_batches
 
         def producer():
             try:

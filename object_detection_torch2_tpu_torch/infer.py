@@ -7,8 +7,14 @@ sweep kernel on the card) -> top-K -> packed (N, K, 6) rows plus `n_valid`.
 Ragged final batches are padded by repeating the last image and masked: the pad
 rows are excluded from BatchNorm batch statistics and their detections zeroed.
 
-Not ported here: the data-parallel `mesh`, `batches_per_dispatch` (the K-stacked
-scan), `d2h_half` and the overlapped device-to-host fetch pipeline.
+`DetectionPipeline` is that path as one module of tensors in and tensors out,
+which serving.py exports; `build_detection_pipeline` runs it eagerly, one
+batch or K stacked batches a call (`batches_per_dispatch`), with the packed
+rows optionally cast to float16 before they leave the card (`d2h_half`).
+`Predictor.predict` drains the results through `utils.hostsync.FetchPipeline`,
+so that a batch's copy to the host overlaps the next batches.
+
+Not ported here: the data-parallel `mesh` (ROADMAP Queue 1 G2).
 """
 
 from __future__ import annotations
@@ -17,6 +23,7 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+from torch import nn
 
 from object_detection_torch2_tpu_torch import resolve_device
 from object_detection_torch2_tpu_torch.core.anchors import default_boxes, feature_grids_for
@@ -24,6 +31,7 @@ from object_detection_torch2_tpu_torch.core.boxes import decode_boxes
 from object_detection_torch2_tpu_torch.data.augment import to_tensor_batch
 from object_detection_torch2_tpu_torch.ops.nms import non_maximum_suppression
 from object_detection_torch2_tpu_torch.ops.scores import calc_scores, top_k_detections
+from object_detection_torch2_tpu_torch.utils.hostsync import FetchPipeline
 
 
 @dataclass
@@ -51,8 +59,37 @@ def postprocess(out: torch.Tensor, df: torch.Tensor, mask: torch.Tensor, iou_thr
     return packed.to(torch.float32), n_valid
 
 
+class DetectionPipeline(nn.Module):
+    """forward(images_u8 (N, H, W, 3) uint8, n_real) -> (packed (N, K, 6),
+    n_valid (N,)) for one SSD: the whole serving path as tensors in and out,
+    the device taken from the images. n_real (an int or a 0-d tensor) masks
+    a padded ragged final batch: pad rows are excluded from BN batch
+    statistics and their detections zeroed. With d2h_half the packed rows
+    come out as float16 (round to nearest even; boxes and scores to ~5e-4
+    relative, class ids <= 20 exact, scores below 6e-8 flush to zero)."""
+
+    def __init__(self, model, use_batch_stats: bool, imsize: int = 300, iou_thresh: float = 0.5,
+                 max_detections: int = 200, d2h_half: bool = False):
+        super().__init__()
+        self.model = model
+        self.use_batch_stats = use_batch_stats
+        self.iou_thresh = iou_thresh
+        self.max_detections = max_detections
+        self.d2h_half = d2h_half
+        self.register_buffer("df", torch.from_numpy(default_boxes(feature_grids_for(imsize)).copy()),
+                             persistent=False)
+
+    def forward(self, images_u8: torch.Tensor, n_real):
+        n = images_u8.shape[0]
+        mask = (torch.arange(n, device=images_u8.device) < n_real).to(torch.float32)
+        out = self.model(to_tensor_batch(images_u8), use_batch_stats=self.use_batch_stats,
+                         batch_mask=mask if self.use_batch_stats else None)
+        packed, n_valid = postprocess(out, self.df, mask, self.iou_thresh, self.max_detections)
+        return (packed.to(torch.float16) if self.d2h_half else packed), n_valid
+
+
 def build_detection_pipeline(model, use_batch_stats: bool, imsize: int = 300, iou_thresh: float = 0.5,
-                             max_detections: int = 200, device=None):
+                             max_detections: int = 200, device=None, d2h_half: bool = False):
     """-> run(images_u8 (N, H, W, 3) uint8, n_real) -> (packed (N, K, 6), n_valid (N,)),
     both on `device`.
 
@@ -61,19 +98,24 @@ def build_detection_pipeline(model, use_batch_stats: bool, imsize: int = 300, io
     does) and used in eval mode: batch statistics, when asked for, normalize
     but never update the running ones. n_real masks a padded ragged final
     batch: pad rows are excluded from BN batch statistics and their detections
-    zeroed. n_valid counts the survivors before the top-K cut."""
+    zeroed. n_valid counts the survivors before the top-K cut.
+
+    run also takes K stacked batches, images_u8 (K, N, H, W, 3) with n_real
+    (K,), and returns (K, N, K_det, 6) / (K, N): each batch through the same
+    path, with its own BN batch-statistics window (the same as K calls), and
+    the K batches' rows in one tensor, so one copy brings them to the host.
+    d2h_half: the packed rows as float16 (see `DetectionPipeline`)."""
     device = resolve_device(device)
     model.to(device).eval()
-    df = torch.from_numpy(default_boxes(feature_grids_for(imsize)).copy()).to(device)
+    pipe = DetectionPipeline(model, use_batch_stats, imsize, iou_thresh, max_detections, d2h_half).to(device)
 
     @torch.inference_mode()
-    def run(images_u8, n_real: int):
+    def run(images_u8, n_real):
         images_u8 = torch.as_tensor(images_u8).to(device)
-        n = images_u8.shape[0]
-        mask = (torch.arange(n, device=device) < n_real).to(torch.float32)
-        out = model(to_tensor_batch(images_u8), use_batch_stats=use_batch_stats,
-                    batch_mask=mask if use_batch_stats else None)
-        return postprocess(out, df, mask, iou_thresh, max_detections)
+        if images_u8.dim() == 5:
+            outs = [pipe(images_u8[k], int(r)) for k, r in enumerate(n_real)]
+            return torch.stack([o[0] for o in outs]), torch.stack([o[1] for o in outs])
+        return pipe(images_u8, n_real)
 
     return run
 
@@ -87,30 +129,64 @@ def unpack_detections(packed):
 
 class Predictor:
     def __init__(self, model, imsize: int = 300, batch_size: int = 8, use_batch_stats: bool = True,
-                 iou_thresh: float = 0.5, max_detections: int = 200, device=None):
+                 iou_thresh: float = 0.5, max_detections: int = 200, device=None, batches_per_dispatch: int = 1,
+                 d2h_half: bool = False):
         """`model` is an `SSD` holding its weights. use_batch_stats=True is the
         reference-parity default (quirk Q9: the reference never calls .eval(),
         so its inference normalizes with batch statistics); pad rows of a
         ragged final batch are masked out of the statistics. device=None
-        means the CUDA card; pass device="cpu" to run on the CPU."""
+        means the CUDA card; pass device="cpu" to run on the CPU.
+
+        batches_per_dispatch=K runs K consecutive batches a call, their rows
+        brought to the host in one copy (the same detections as K = 1);
+        leftover batches at the end run one at a time. d2h_half=True copies
+        the packed rows as float16 (see `DetectionPipeline`)."""
+        if batches_per_dispatch < 1:
+            raise ValueError(f"batches_per_dispatch must be >= 1, got {batches_per_dispatch}")
         self.model = model
         self.imsize = imsize
         self.batch_size = batch_size
+        self.batches_per_dispatch = batches_per_dispatch
         self._run = build_detection_pipeline(model, use_batch_stats, imsize=imsize, iou_thresh=iou_thresh,
-                                             max_detections=max_detections, device=device)
+                                             max_detections=max_detections, device=device, d2h_half=d2h_half)
 
-    def predict(self, images_u8: np.ndarray) -> list[Detections]:
+    def predict(self, images_u8: np.ndarray, fetch_depth: int = 2) -> list[Detections]:
         """images_u8: (M, imsize, imsize, 3) uint8, any M — processed in
-        static-size batches (final batch padded + masked, padding discarded)."""
+        static-size batches (final batch padded + masked, padding discarded).
+
+        Pipelined (utils.hostsync.FetchPipeline): each dispatch's packed rows
+        start their copy to the host at once and are consumed `fetch_depth`
+        dispatches later."""
         images_u8 = np.asarray(images_u8)
         results: list[Detections] = []
+        pipe = FetchPipeline(fetch_depth)
+        chunks: list[np.ndarray] = []
+        reals: list[int] = []
         for start in range(0, len(images_u8), self.batch_size):
             chunk = images_u8[start:start + self.batch_size]
             real = len(chunk)
             if real < self.batch_size:
                 chunk = np.concatenate([chunk, np.repeat(chunk[-1:], self.batch_size - real, 0)])
+            chunks.append(chunk)
+            reals.append(real)
+            if len(chunks) == self.batches_per_dispatch:
+                packed, _ = self._run(np.stack(chunks), reals)
+                self._drain(pipe.push((packed, reals)), results)
+                chunks, reals = [], []
+        for chunk, real in zip(chunks, reals):  # leftover batches (< K), one at a time
             packed, _ = self._run(chunk, real)
-            boxes, classes, scores = unpack_detections(packed.cpu().numpy())
+            self._drain(pipe.push((packed[None], [real])), results)
+        for done in pipe.flush():
+            self._drain(done, results)
+        return results
+
+    @staticmethod
+    def _drain(done, results: list[Detections]):
+        if done is None:
+            return
+        packed_k, reals = done
+        for packed, real in zip(packed_k, reals):
+            boxes, classes, scores = unpack_detections(packed.numpy())
             for i in range(real):
                 keep = scores[i] > 0
                 results.append(Detections(
@@ -118,4 +194,3 @@ class Predictor:
                     class_ids=classes[i, keep] - 1,  # shift void out (dataset +1 convention)
                     scores=scores[i, keep],
                 ))
-        return results

@@ -1,17 +1,21 @@
-"""conv_1_2 of the SSD trunk: the plain version, the autograd wrapper and the
+"""conv_1_2 of the SSD trunk: the plain version, the gradient and the
 dispatch (counterpart of object_detection_torch2_tpu/ops/conv12_pallas.py).
 
 `conv12(x, w, b, out_dtype)` is what `SSD(conv12_kernel=True)` runs for layer
-1_2 (3x3, stride 1, pad 1, 64 -> 64):
+1_2 (3x3, stride 1, pad 1, 64 -> 64), through the custom op
+`torch.ops.odt.conv12` (ops/registry.py):
 - on a CPU tensor, the plain version `conv12_plain`;
-- on a CUDA tensor, the kernel csrc/conv12.cu through `Conv12Function`, or an
+- on a CUDA tensor, the kernels of csrc/ (ops/conv12_cuda.py), or an
   exception. Nothing falls back, and nothing moves the work to the CPU.
 
 Numerics, as the TPU kernel's: the sum in float32 whatever the input type,
 the float32 bias added in float32, one cast to `out_dtype` at the end. The
-backward is plain PyTorch math (the input and weight gradients of the same
-convolution, in true float32 for float32), as the JAX package's custom VJP
-delegates to its XLA formulation; the frozen-trunk recipe never calls it.
+gradient (`conv12_backward`, the op's autograd formula on every device) is
+plain PyTorch math, the gradient of `conv12_plain` as autograd computes it:
+the input and weight gradients of the float32 convolution
+(`aten.convolution_backward`, in true float32), cast to the inputs' types, as
+the JAX package's custom VJP delegates to its XLA formulation; the
+frozen-trunk recipe never calls it.
 
 The TPU's paired-x layout, `pack_conv12_weights`, `pick_tile_h` and the
 host-side edge operand are lane tricks of the TPU and are not ported.
@@ -23,7 +27,6 @@ import torch
 import torch.nn.functional as F
 
 from object_detection_torch2_tpu_torch import true_float32
-from object_detection_torch2_tpu_torch.ops import conv12_cuda
 
 
 def conv12_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
@@ -35,36 +38,37 @@ def conv12_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return (y + b.float()[None, :, None, None]).to(out_dtype or x.dtype)
 
 
-class Conv12Function(torch.autograd.Function):
-    """Forward: the CUDA kernel. Backward: plain PyTorch math."""
+def conv12_setup_context(ctx, inputs, output):
+    x, w, b, _ = inputs
+    ctx.save_for_backward(x, w)
+    ctx.bias_dtype = b.dtype
 
-    @staticmethod
-    def forward(ctx, x, w, b, out_dtype):
-        ctx.save_for_backward(x, w)
-        ctx.bias_dtype = b.dtype
-        return conv12_cuda.conv12_cuda(x, w, b, out_dtype)
 
-    @staticmethod
-    def backward(ctx, g):
-        x, w = ctx.saved_tensors
-        gx = gw = gb = None
-        gc = g.to(x.dtype)
+def conv12_backward(ctx, g):
+    """Gradients (x, w, b, None) of `conv12` for the output gradient g: those
+    of `conv12_plain` under autograd, bit for bit on the CPU."""
+    x, w = ctx.saved_tensors
+    need_x, need_w, need_b = ctx.needs_input_grad[:3]
+    gx = gw = gb = None
+    gf = g.float()
+    if need_x or need_w:
         with true_float32():
-            if ctx.needs_input_grad[0]:
-                gx = torch.nn.grad.conv2d_input(x.shape, w, gc, padding=1)
-            if ctx.needs_input_grad[1]:
-                gw = torch.nn.grad.conv2d_weight(x, w.shape, gc, padding=1)
-        if ctx.needs_input_grad[2]:
-            gb = g.float().sum(dim=(0, 2, 3)).to(ctx.bias_dtype)
-        return gx, gw, gb, None
+            gxf, gwf, _ = torch.ops.aten.convolution_backward(gf, x.float(), w.float(), None, [1, 1], [1, 1], [1, 1],
+                                                              False, [0, 0], 1, [need_x, need_w, False])
+        gx = gxf.to(x.dtype) if need_x else None
+        gw = gwf.to(w.dtype) if need_w else None
+    if need_b:
+        gb = gf.sum(dim=(0, 2, 3)).to(ctx.bias_dtype)
+    return gx, gw, gb, None
 
 
 def conv12(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
            out_dtype: torch.dtype | None = None) -> torch.Tensor:
-    """conv_1_2: the plain version for a CPU tensor, the kernel (or an
-    exception) for a CUDA tensor, an error for any other device."""
-    if x.device.type == "cpu":
-        return conv12_plain(x, w, b, out_dtype)
-    if x.device.type == "cuda":
-        return Conv12Function.apply(x, w, b, out_dtype)
-    raise ValueError(f"no conv_1_2 for device {x.device}")
+    """conv_1_2 through `torch.ops.odt.conv12`: the plain version for a CPU
+    tensor, the kernel (or an exception) for a CUDA tensor, an error for any
+    other device."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no conv_1_2 for device {x.device}")
+    from object_detection_torch2_tpu_torch.ops import registry
+
+    return registry.conv12(x, w, b, out_dtype)

@@ -16,7 +16,9 @@ boxes; the 0/1 keep mask multiplies ALL score columns (including void).
   full sort. Every sweep — the full one and both tiers — goes through
   `ops.nms_cuda.keep_sorted`: the CUDA kernel for a tensor on the card, the
   plain sweep for a tensor on the CPU. The result is the same function at
-  every width.
+  every width. Run eagerly, the tier is picked on the host (one sync a
+  batch); under `torch.export` the pick is a `torch.cond` in the traced
+  graph, as the JAX package's `lax.cond` (its ops/nms.py:285-293).
 
 Ties: candidates are ordered by a stable sort, so among EXACT score ties the
 lowest index goes first (and, for exact-duplicate rows, survives), as the JAX
@@ -129,16 +131,39 @@ def nms_keep_mask(boxes: torch.Tensor, sort_scores: torch.Tensor, iou_thresh: fl
     if sweep is None:
         from object_detection_torch2_tpu_torch.ops.nms_cuda import keep_sorted as sweep
     p = boxes.shape[1]
-    max_pos = int((sort_scores > 0.0).sum(dim=-1).max())
-    for t in COMPACT_TIERS:
-        if t < p and max_pos <= t:
+    tiers = [t for t in COMPACT_TIERS if t < p]
+
+    def tier(t):
+        def run(boxes, sort_scores):
             vals, idx = torch.sort(sort_scores, dim=-1, descending=True, stable=True)
             vals, idx = vals[:, :t].contiguous(), idx[:, :t].contiguous()
-            keep_c = sweep(_take_boxes(boxes, idx), vals > 0.0, iou_thresh)
-            return _scatter_keep(keep_c, idx, p)
-    order = torch.sort(-sort_scores, dim=-1, stable=True).indices
-    sorted_valid = torch.gather(sort_scores, 1, order) > 0.0
-    return _scatter_keep(sweep(_take_boxes(boxes, order), sorted_valid, iou_thresh), order, p)
+            return _scatter_keep(sweep(_take_boxes(boxes, idx), vals > 0.0, iou_thresh), idx, p)
+        return run
+
+    def full(boxes, sort_scores):
+        order = torch.sort(-sort_scores, dim=-1, stable=True).indices
+        sorted_valid = torch.gather(sort_scores, 1, order) > 0.0
+        return _scatter_keep(sweep(_take_boxes(boxes, order), sorted_valid, iou_thresh), order, p)
+
+    if torch.compiler.is_exporting():
+        chosen = full
+        for t in reversed(tiers):  # the smallest tier that holds every image, else full
+            chosen = _cond_tier(t, tier(t), chosen)
+        return chosen(boxes, sort_scores)
+    max_pos = int((sort_scores > 0.0).sum(dim=-1).max())
+    for t in tiers:
+        if max_pos <= t:
+            return tier(t)(boxes, sort_scores)
+    return full(boxes, sort_scores)
+
+
+def _cond_tier(t: int, this, otherwise):
+    """(boxes, sort_scores) -> `this` when every image has <= t positives,
+    else `otherwise`, as one `torch.cond` of the traced graph."""
+    def run(boxes, sort_scores):
+        fits = (sort_scores > 0.0).sum(dim=-1).max() <= t
+        return torch.cond(fits, this, otherwise, (boxes, sort_scores))
+    return run
 
 
 def non_maximum_suppression(outputs: torch.Tensor, iou_thresh: float = 0.5, sweep=None) -> torch.Tensor:

@@ -2,17 +2,24 @@
 (counterpart of object_detection_torch2_tpu/ops/nms_pallas.py).
 
 `keep_sorted(sorted_boxes, sorted_valid, iou_thresh)` is the sweep that every
-NMS path of `ops.nms.nms_keep_mask` runs:
+NMS path of `ops.nms.nms_keep_mask` runs, through the custom op
+`torch.ops.odt.nms_keep_sorted` (ops/registry.py):
 - on a CPU tensor, the plain version `ops.nms._blocked_keep_sorted`;
 - on a CUDA tensor, the kernel, or an exception. Nothing falls back, and
   nothing moves the work to the CPU.
 
 `launches` counts the sweeps run on the card: `nms_keep_sorted_cuda` adds one
-each time it launches the sweep (a mask kernel and a resolve kernel), and
-nothing else touches it but a caller that resets it.
+each time it launches the sweep (a mask kernel and a resolve kernel) over a
+slice of the batch, and nothing else touches it but a caller that resets it.
 
-The sweep needs a scratch of n * p * ceil(p / 64) 64-bit words (306 MB at
-32 x 8732); `MASK_SCRATCH_CAP_BYTES` bounds it.
+The sweep needs a scratch of p * ceil(p / 64) 64-bit words an image (9.57 MB
+at P 8732, 306 MB at 32 x 8732); `MASK_SCRATCH_CAP_BYTES` bounds it. A batch
+whose scratch is above the cap is swept in slices of at most
+`MASK_SCRATCH_CAP_BYTES // mask_scratch_bytes(1, p)` images (224 at P 8732),
+each slice a launch of the same kernels into one scratch reused from slice to
+slice (the launches are ordered on one stream); `sweep_slices` cuts the
+batch. Only an image whose own scratch is above the cap (p above 131,072)
+is refused; SSD's P is 8732.
 """
 
 from __future__ import annotations
@@ -23,7 +30,6 @@ import functools
 import torch
 
 from object_detection_torch2_tpu_torch.ops import _build
-from object_detection_torch2_tpu_torch.ops.nms import _blocked_keep_sorted
 
 launches = 0
 TILE = 64
@@ -48,6 +54,17 @@ def mask_scratch_bytes(n: int, p: int) -> int:
     return n * p * (-(-p // TILE)) * 8
 
 
+def sweep_slices(n: int, p: int, cap: int = MASK_SCRATCH_CAP_BYTES) -> list[tuple[int, int]]:
+    """[(start, stop)] slices of an n-image batch at width p whose mask
+    scratch each fits `cap` bytes: as few as possible, all but the last of
+    the same size. Raises when one image's scratch is above the cap."""
+    per_image = mask_scratch_bytes(1, p)
+    if per_image > cap:
+        raise ValueError(f"one image of {p} candidates needs a {per_image} B mask scratch, above the {cap} B cap")
+    step = cap // per_image if per_image else max(n, 1)
+    return [(start, min(start + step, n)) for start in range(0, n, step)]
+
+
 def nms_keep_sorted_cuda(sorted_boxes: torch.Tensor, sorted_valid: torch.Tensor,
                          iou_thresh: float = 0.5) -> torch.Tensor:
     """The kernel: sorted_boxes (N, P, 4) float32, sorted_valid (N, P) bool,
@@ -65,29 +82,30 @@ def nms_keep_sorted_cuda(sorted_boxes: torch.Tensor, sorted_valid: torch.Tensor,
     if not (sorted_boxes.is_contiguous() and sorted_valid.is_contiguous()):
         raise ValueError("nms_keep_sorted_cuda needs contiguous tensors")
     n, p, _ = sorted_boxes.shape
-    scratch = mask_scratch_bytes(n, p)
-    if scratch > MASK_SCRATCH_CAP_BYTES:
-        raise ValueError(f"{n} x {p} candidates need a {scratch} B mask scratch, above the "
-                         f"{MASK_SCRATCH_CAP_BYTES} B cap; sweep fewer images at a time")
     keep = torch.empty((n, p), dtype=torch.uint8, device=sorted_boxes.device)
-    mask = torch.empty(scratch // 8, dtype=torch.int64, device=sorted_boxes.device)
+    if n == 0 or p == 0:
+        return keep.view(torch.bool)
+    slices = sweep_slices(n, p, MASK_SCRATCH_CAP_BYTES)
+    most = max(stop - start for start, stop in slices)
+    mask = torch.empty(mask_scratch_bytes(most, p) // 8, dtype=torch.int64, device=sorted_boxes.device)
     fn = _lib()
     with torch.cuda.device(sorted_boxes.device):
         stream = torch.cuda.current_stream()
-        rc = fn(sorted_boxes.data_ptr(), sorted_valid.data_ptr(), mask.data_ptr(), keep.data_ptr(), n, p,
-                float(iou_thresh), stream.cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"nms_keep_sorted kernel launch failed: CUDA error {rc}")
-    if n and p:
-        launches += 1
+        for start, stop in slices:
+            rc = fn(sorted_boxes[start].data_ptr(), sorted_valid[start].data_ptr(), mask.data_ptr(),
+                    keep[start].data_ptr(), stop - start, p, float(iou_thresh), stream.cuda_stream)
+            if rc != 0:
+                raise RuntimeError(f"nms_keep_sorted kernel launch failed: CUDA error {rc}")
+            launches += 1
     return keep.view(torch.bool)
 
 
 def keep_sorted(sorted_boxes: torch.Tensor, sorted_valid: torch.Tensor, iou_thresh: float = 0.5) -> torch.Tensor:
-    """Keep mask over SCORE-SORTED candidates: the kernel for CUDA tensors, the
-    plain sweep for CPU tensors, an error for any other device."""
-    if sorted_boxes.device.type == "cpu":
-        return _blocked_keep_sorted(sorted_boxes, sorted_valid, iou_thresh)
-    if sorted_boxes.device.type == "cuda":
-        return nms_keep_sorted_cuda(sorted_boxes, sorted_valid, iou_thresh)
-    raise ValueError(f"no NMS sweep for device {sorted_boxes.device}")
+    """Keep mask over SCORE-SORTED candidates through the custom op
+    `torch.ops.odt.nms_keep_sorted` (ops/registry.py): the kernel for CUDA
+    tensors, the plain sweep for CPU tensors, an error for any other device."""
+    if sorted_boxes.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no NMS sweep for device {sorted_boxes.device}")
+    from object_detection_torch2_tpu_torch.ops import registry
+
+    return registry.nms_keep_sorted(sorted_boxes, sorted_valid, float(iou_thresh))

@@ -3,10 +3,11 @@
 
 - `weights.msgpack`: the JAX package's {"params", "batch_stats"} tree in
   flax's msgpack layout (train/_msgpack.py), so that a checkpoint written by
-  either package loads in the other. `save_weights` writes an `SSD`'s
-  state_dict through `models.convert.jax_variables_from_state_dict`;
+  either package loads in the other. `save_weights` writes an `SSD`'s or a
+  `VGG16`'s state_dict through `models.convert.jax_variables_of`;
   `load_weights` returns the tree with numpy leaves, which
-  `models.convert.ssd_state_dict_from_jax_variables` turns into a state_dict.
+  `models.convert.ssd_state_dict_from_jax_variables` (or
+  `vgg16_state_dict_from_jax_variables`) turns into a state_dict.
 - `params.json`: the reference's {min_loss, lr, last_epoch} record
   (reference: src/train.py:150-152), with the JAX package's optional
   `base_lr` and `steps_per_epoch`.
@@ -30,15 +31,16 @@ from pathlib import Path
 
 import torch
 
-from object_detection_torch2_tpu_torch.models.convert import jax_variables_from_state_dict
+from object_detection_torch2_tpu_torch.models.convert import jax_variables_of
 from object_detection_torch2_tpu_torch.train import _msgpack
 
 
 def save_weights(path, model):
-    """Write `model`'s (an `SSD`) weights as the JAX package's weights.msgpack."""
+    """Write `model`'s (an `SSD` or a `VGG16`) weights as the JAX package's
+    weights.msgpack."""
     path = Path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
-    data = _msgpack.packb(jax_variables_from_state_dict(model.state_dict(), model.num_classes))
+    data = _msgpack.packb(jax_variables_of(model))
     with open(path, "wb") as f:
         f.write(data)
 

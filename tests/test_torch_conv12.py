@@ -20,7 +20,7 @@ from object_detection_torch2_tpu.models.ssd import SSD as JaxSSD
 from object_detection_torch2_tpu_torch.models.convert import ssd_state_dict_from_jax_variables
 from object_detection_torch2_tpu_torch.models.ssd import SSD
 from object_detection_torch2_tpu_torch.ops import conv12_cuda
-from object_detection_torch2_tpu_torch.ops.conv12 import Conv12Function, conv12, conv12_plain
+from object_detection_torch2_tpu_torch.ops.conv12 import conv12, conv12_backward, conv12_plain
 
 torch.set_num_threads(2)
 
@@ -67,8 +67,10 @@ def test_plain_matches_jax_kernel_and_xla(n, h, w):
 def test_gradients_match_jax_custom_vjp():
     """d/dx, d/dw, d/db of sum(y^2) against the JAX kernel's custom VJP
     (which delegates to `_xla_paired`), rtol/atol 1e-4: through autograd of the
-    plain version (the CPU path) and through `Conv12Function.backward` (the
-    card's backward, plain PyTorch math, called here with the saved tensors)."""
+    custom op (the CPU path) and through `conv12_backward` (the op's gradient
+    on every device, plain PyTorch math, called here with the saved
+    tensors); the op's gradient is autograd's of the plain version, bit for
+    bit."""
     n, h, w = 1, 30, 16
     x, wt, b = _case(n, h, w, seed=3)
     gj = jax.grad(lambda a, k, c: jnp.sum(c12.conv12_paired(a, k, c) ** 2), argnums=(0, 1, 2))(
@@ -80,7 +82,11 @@ def test_gradients_match_jax_custom_vjp():
     (y ** 2).sum().backward()
     ctx = types.SimpleNamespace(saved_tensors=(xt.detach(), wtt.detach()), needs_input_grad=(True, True, True, False),
                                 bias_dtype=torch.float32)
-    by_function = Conv12Function.backward(ctx, 2 * y.detach())[:3]
+    by_function = conv12_backward(ctx, 2 * y.detach())[:3]
+    xp, wp, bp = (t.clone().requires_grad_(True) for t in _port(x, wt, b))
+    (conv12_plain(xp, wp, bp) ** 2).sum().backward()
+    for got, plain in zip((xt.grad, wtt.grad, bt.grad), (xp.grad, wp.grad, bp.grad)):
+        assert torch.equal(got, plain)
     for got in ((xt.grad, wtt.grad, bt.grad), by_function):
         np.testing.assert_allclose(got[0].permute(0, 2, 3, 1).numpy(), want[0], rtol=1e-4, atol=1e-4)
         np.testing.assert_allclose(got[1].numpy(), want[1], rtol=1e-4, atol=1e-4)

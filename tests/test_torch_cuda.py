@@ -88,13 +88,47 @@ def test_kernel_raises_above_scratch_cap(card, monkeypatch):
     sb, sv = _sorted_clustered(np.random.default_rng(6), 2, 300, True, card)
     need = nms_cuda.mask_scratch_bytes(2, 300)
     assert need == 2 * 300 * 5 * 8
-    monkeypatch.setattr(nms_cuda, "MASK_SCRATCH_CAP_BYTES", need - 1)
+    # only one image's scratch above the cap raises
+    monkeypatch.setattr(nms_cuda, "MASK_SCRATCH_CAP_BYTES", need // 2 - 1)
     before = nms_cuda.launches
     with pytest.raises(ValueError, match="scratch"):
         nms_cuda.nms_keep_sorted_cuda(sb, sv)
     assert nms_cuda.launches == before
+    want = nms._blocked_keep_sorted(sb, sv, 0.5)
+    # below the batch's scratch: one slice an image
+    monkeypatch.setattr(nms_cuda, "MASK_SCRATCH_CAP_BYTES", need - 1)
+    assert torch.equal(nms_cuda.nms_keep_sorted_cuda(sb, sv), want)
+    assert nms_cuda.launches == before + 2
     monkeypatch.setattr(nms_cuda, "MASK_SCRATCH_CAP_BYTES", need)
-    assert torch.equal(nms_cuda.nms_keep_sorted_cuda(sb, sv), nms._blocked_keep_sorted(sb, sv, 0.5))
+    assert torch.equal(nms_cuda.nms_keep_sorted_cuda(sb, sv), want)
+    assert nms_cuda.launches == before + 3
+
+
+@pytest.mark.parametrize("images_per_slice", [1, 3, 7])
+def test_kernel_in_slices_equals_plain(card, monkeypatch, images_per_slice):
+    """The cap patched small: a batch of 16 swept in at least 3 slices, one
+    launch each, into one scratch, keep mask identical to the plain sweep."""
+    sb, sv = _sorted_clustered(np.random.default_rng(images_per_slice), 16, 1024, True, card)
+    monkeypatch.setattr(nms_cuda, "MASK_SCRATCH_CAP_BYTES", nms_cuda.mask_scratch_bytes(images_per_slice, 1024))
+    slices = nms_cuda.sweep_slices(16, 1024, nms_cuda.MASK_SCRATCH_CAP_BYTES)
+    assert len(slices) >= 3
+    before = nms_cuda.launches
+    got = nms_cuda.keep_sorted(sb, sv, 0.5)
+    torch.cuda.synchronize()
+    assert nms_cuda.launches == before + len(slices)
+    assert torch.equal(got, nms._blocked_keep_sorted(sb, sv, 0.5))
+
+
+def test_kernel_at_batch_256_equals_plain(card):
+    """N = 256 at SSD's P = 8732 (above the 224 images one scratch holds): two
+    slices, two launches, the plain sweep's keep mask."""
+    sb, sv = _sorted_clustered(np.random.default_rng(256), 256, 8732, False, card)
+    sv[:4] = True  # four images take the full sweep's worst case
+    before = nms_cuda.launches
+    got = nms_cuda.nms_keep_sorted_cuda(sb, sv, 0.5)
+    torch.cuda.synchronize()
+    assert nms_cuda.launches == before + 2 == before + len(nms_cuda.sweep_slices(256, 8732))
+    assert torch.equal(got, nms._blocked_keep_sorted(sb, sv, 0.5))
 
 
 def test_kernel_wrapper_checks(card):
@@ -359,3 +393,90 @@ def test_render_of_card_pipeline_detections(card, tmp_path):
             want = render_detections_compact(chunk[i], boxes[i], classes[i], scores[i], labelmap, 264)
             got = Image.open(out["paths"][start + i]).convert("RGB")
             assert np.array_equal(np.asarray(got), np.asarray(want)), start + i
+
+
+# ---------------------------------------------------------------- serving plumbing
+
+
+def test_custom_ops_launch_the_kernels(card):
+    """torch.ops.odt.* on CUDA tensors launch the kernels (the counters
+    count) and equal the plain versions; the ops pass torch.library's checks."""
+    from torch.library import opcheck
+
+    from object_detection_torch2_tpu_torch.ops import registry
+
+    sb, sv = _sorted_clustered(np.random.default_rng(31), 4, 300, True, card)
+    before = nms_cuda.launches
+    got = torch.ops.odt.nms_keep_sorted(sb, sv, 0.5)
+    torch.cuda.synchronize()
+    assert nms_cuda.launches == before + 1 and torch.equal(got, nms._blocked_keep_sorted(sb, sv, 0.5))
+    opcheck(registry.nms_keep_sorted, (sb, sv, 0.5))
+    rng = np.random.default_rng(32)
+    x = torch.from_numpy(np.maximum(rng.standard_normal((2, 20, 24, 64), dtype=np.float32), 0)).to(card)
+    x = x.permute(0, 3, 1, 2)
+    w = torch.from_numpy((0.06 * rng.standard_normal((64, 64, 3, 3))).astype(np.float32)).to(card)
+    b = torch.from_numpy((0.1 * rng.standard_normal(64)).astype(np.float32)).to(card)
+    before = conv12_cuda.launches
+    y = torch.ops.odt.conv12(x, w, b, None)
+    torch.cuda.synchronize()
+    assert conv12_cuda.launches == before + 1
+    torch.testing.assert_close(y, conv12_plain(x, w, b), rtol=1e-4, atol=1e-4)
+    xs, ws = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+    with true_float32():
+        (registry.conv12(xs, ws, b, None) ** 2).sum().backward()
+    assert xs.grad is not None and ws.grad is not None
+
+
+def test_fetch_pipeline_over_cuda_tensors(card):
+    """CUDA leaves come back `depth` pushes later as pinned host tensors with
+    the right values; buffers are reused from depth + 1 slots."""
+    from object_detection_torch2_tpu_torch.utils.hostsync import FetchPipeline
+
+    pipe = FetchPipeline(2)
+    got = []
+    for i in range(7):
+        x = torch.full((32, 200, 6), float(i), device=card)
+        out = pipe.push({"x": x * 2, "n": torch.arange(4, device=card) + i, "i": i})
+        if out is not None:
+            got.append(out)
+            assert out["x"].device.type == "cpu" and out["x"].is_pinned()
+            assert bool((out["x"] == 2 * out["i"]).all()) and out["n"].tolist() == [out["i"] + k for k in range(4)]
+    got += list(pipe.flush())
+    assert [g["i"] for g in got] == list(range(7))
+    ptrs = {g["x"].data_ptr() for g in got}
+    assert len(ptrs) == 3
+
+
+def test_device_cache_on_the_card(card, tmp_path):
+    """The records upload to the card (in several chunks) and gathers there
+    equal the records' rows; DataLoader(device_cache=True) yields CUDA
+    batches equal to streaming."""
+    import json
+
+    from object_detection_torch2_tpu_torch.data import device_cache
+    from object_detection_torch2_tpu_torch.data.loader import DataLoader
+    from object_detection_torch2_tpu_torch.data.records import RecordDataset
+
+    rng = np.random.default_rng(33)
+    tmp_path.mkdir(exist_ok=True)
+    np.save(tmp_path / "images.npy", rng.integers(0, 256, (9, 64, 64, 3), dtype=np.uint8))
+    np.save(tmp_path / "gts.npy", rng.uniform(size=(9, 4, 25)).astype(np.float32))
+    (tmp_path / "meta.json").write_text(json.dumps({"count": 9, "purpose": "detection"}))
+    ds = RecordDataset(tmp_path)
+    old = device_cache.UPLOAD_CHUNK_BYTES
+    device_cache.UPLOAD_CHUNK_BYTES = 2 * 64 * 64 * 3
+    try:
+        cache = device_cache.DeviceCache(ds, verbose=False)
+    finally:
+        device_cache.UPLOAD_CHUNK_BYTES = old
+    assert cache.images.device.type == "cuda"
+    images, gts = cache.gather(np.array([[8, 1], [3, 3]]))
+    assert images.device.type == "cuda" and images.shape == (2, 2, 64, 64, 3)
+    np.testing.assert_array_equal(images[0, 0].cpu().numpy(), ds.images[8])
+    np.testing.assert_array_equal(gts[1, 1].cpu().numpy(), ds.gts[3])
+    stream = DataLoader(ds, 2, shuffle=True, seed=5, max_gt=4)
+    cached = DataLoader(ds, 2, shuffle=True, seed=5, max_gt=4, device_cache=True)
+    for (ia, ga), (ib, gb) in zip(stream, cached, strict=True):
+        assert ib.device.type == "cuda"
+        np.testing.assert_array_equal(ia, ib.cpu().numpy())
+        np.testing.assert_array_equal(ga, gb.cpu().numpy())

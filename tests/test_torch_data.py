@@ -121,8 +121,8 @@ def test_loader_num_workers_equivalence():
 def test_loader_unported_options_and_errors(records):
     with pytest.raises(NotImplementedError, match="Queue 1 G"):
         DataLoader(records, batch_size=2, mesh=object())
-    with pytest.raises(NotImplementedError, match="Queue 1 G"):
-        DataLoader(records, batch_size=2, device_cache=True)
+    with pytest.raises(ValueError, match="drop_last"):
+        DataLoader(records, batch_size=2, device_cache=True, drop_last=False, device="cpu")
 
     class Broken:
         def __len__(self):

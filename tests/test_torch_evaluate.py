@@ -147,6 +147,48 @@ def test_cli_main_records_gives_same_aps(cli_run, tmp_path):
     np.testing.assert_array_equal(got[1:3], (mean_ap, strict_mean))
 
 
+@pytest.mark.parametrize("flags", [["--batches_per_dispatch", "2"], ["--d2h_half"],
+                                   ["--batches_per_dispatch", "3", "--d2h_half"]])
+def test_cli_flags_match_the_plain_run(cli_run, tmp_path, flags):
+    """K batches a call (2: both batches in one call; 3: more than there
+    are, so each runs alone) gives the plain run's APs exactly; with float16
+    match scores the parity APs (recall) are exact and the strict APs within
+    1e-6 (no two of these scores round to a tie)."""
+    result_dir, (aps, mean_ap, strict_mean, strict_aps), _ = cli_run
+    (tmp_path / "detection").mkdir()
+    (tmp_path / "detection" / "weights.msgpack").write_bytes((result_dir / "detection" / "weights.msgpack").read_bytes())
+    got = evaluate.main(CLI_ARGS + ["--data_dirs", str(FIXTURE), "--result_dir", str(tmp_path)] + flags)
+    np.testing.assert_array_equal(got[0], aps)
+    assert got[1] == mean_ap
+    if "--d2h_half" in flags:
+        _assert_aps_close(got[3], strict_aps)
+    else:
+        np.testing.assert_array_equal(got[3], strict_aps)
+        assert got[2] == strict_mean
+
+
+def test_eval_pipeline_k_stacked_and_half_scores():
+    """build_eval_pipeline on K stacked batches equals K calls; d2h_half
+    casts only the scores leaf to float16."""
+    model = SSD(num_classes=21, seed=1)
+    rng = np.random.default_rng(6)
+    images = rng.integers(0, 256, (2, BATCH, IMSIZE, IMSIZE, 3), dtype=np.uint8)
+    gts = np.stack([synth_targets(rng, BATCH, [2, 1, 3], G_PAD) for _ in range(2)])
+    run = evaluate.build_eval_pipeline(model, True, IMSIZE, 20, device="cpu")
+    half = evaluate.build_eval_pipeline(model, True, IMSIZE, 20, device="cpu", d2h_half=True)
+    stacked, n_valid = run(images, gts, [3, 2])
+    halved, _ = half(images, gts, [3, 2])
+    for k, real in enumerate((3, 2)):
+        single, nv = run(images[k], gts[k], real)
+        assert torch.equal(n_valid[k], nv)
+        for key in single:
+            assert torch.equal(stacked[key][k], single[key]), key
+            if key == "scores":
+                assert halved[key].dtype == torch.float16 and torch.equal(halved[key][k], single[key].half())
+            else:
+                assert torch.equal(halved[key][k], single[key]), key
+
+
 @pytest.mark.parametrize("n", [0, 1, 2, 3])
 def test_padding_helpers_match_jax(n):
     """pad_rows, pad_batch and batched equal the JAX package's (pad_batch
@@ -162,8 +204,7 @@ def test_padding_helpers_match_jax(n):
     assert list(common.batched(3 * n + 1, 2)) == list(jax_common.batched(3 * n + 1, 2))
 
 
-@pytest.mark.parametrize("flags,item",[(["--batches_per_dispatch", "2"], "G"), (["--d2h_half"], "G"),
-                                        (["--distributed"], "G"), (["--num_devices", "2"], "G"),
+@pytest.mark.parametrize("flags,item", [(["--distributed"], "G"), (["--num_devices", "2"], "G"),
                                         (["--trunk_int8"], "F"), (["--full_int8"], "F")])
 def test_cli_unported_flags_raise(tmp_path, flags, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 {item}"):

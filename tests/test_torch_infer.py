@@ -109,3 +109,52 @@ def test_predictor_without_device_needs_a_card():
         Predictor(SSD(num_classes=21), imsize=IMSIZE)
     with pytest.raises(RuntimeError, match="CUDA"):
         build_detection_pipeline(SSD(num_classes=21), True, imsize=IMSIZE, device="cuda")
+
+
+def _f16_ulp(x: np.ndarray) -> np.ndarray:
+    """One float16 ulp at each value's magnitude (normals; 2^-24 below)."""
+    mag = np.abs(x.astype(np.float32))
+    return np.where(mag >= 2.0 ** -14, 2.0 ** (np.floor(np.log2(np.maximum(mag, 2.0 ** -14))) - 10), 2.0 ** -24)
+
+
+def test_pipeline_d2h_half_within_one_ulp_of_jax(both):
+    """float16 rows (running statistics, a padded batch): the port's cast
+    rounds to nearest even as XLA's does, so each value is within one
+    float16 ulp of the JAX package's float16 rows (the float32 rows agree to
+    ~1e-5 before the cast); class ids exact; the port's float16 rows are its
+    float32 rows rounded."""
+    jmodel, variables, model, images = both
+    jrun = jax_pipeline(jmodel, use_batch_stats=False, imsize=IMSIZE, max_detections=50, d2h_half=True)
+    want = np.asarray(jrun(variables, jnp.asarray(images), 2)[0])
+    run = build_detection_pipeline(model, use_batch_stats=False, imsize=IMSIZE, max_detections=50, device="cpu",
+                                   d2h_half=True)
+    packed, _ = run(images, 2)
+    full, _ = build_detection_pipeline(model, use_batch_stats=False, imsize=IMSIZE, max_detections=50,
+                                       device="cpu")(images, 2)
+    assert packed.dtype == torch.float16 and want.dtype == np.float16
+    assert torch.equal(packed, full.to(torch.float16))
+    got = packed.numpy()
+    np.testing.assert_array_equal(got[..., 4], want[..., 4])
+    d = np.abs(got.astype(np.float32) - want.astype(np.float32))
+    assert (d <= _f16_ulp(want)).all(), f"max {d.max()} at {np.unravel_index(d.argmax(), d.shape)}"
+
+
+def test_predictor_batches_per_dispatch_equals_one(both):
+    """K = 2 batches a dispatch (5 images at batch 2, batch statistics: one
+    K-call, then the leftover batch alone) gives K = 1's detections, bit for
+    bit; d2h_half gives them rounded to float16."""
+    _, _, model, images = both
+    images = np.concatenate([images, images[::-1][:2]])
+    kwargs = dict(imsize=IMSIZE, batch_size=2, use_batch_stats=True, device="cpu")
+    want = Predictor(model, **kwargs).predict(images)
+    got = Predictor(model, batches_per_dispatch=2, **kwargs).predict(images)
+    half = Predictor(model, batches_per_dispatch=2, d2h_half=True, **kwargs).predict(images)
+    assert len(got) == len(half) == len(want) == 5
+    for g, h, w in zip(got, half, want):
+        for a, b in ((g.boxes, w.boxes), (g.class_ids, w.class_ids), (g.scores, w.scores)):
+            np.testing.assert_array_equal(a, b)
+        np.testing.assert_array_equal(h.class_ids, w.class_ids)
+        np.testing.assert_array_equal(h.scores, w.scores.astype(np.float16).astype(np.float32))
+        np.testing.assert_array_equal(h.boxes, w.boxes.astype(np.float16).astype(np.float32))
+    with pytest.raises(ValueError, match="batches_per_dispatch"):
+        Predictor(model, batches_per_dispatch=0, **kwargs)

@@ -73,11 +73,11 @@ def test_save_detections_names_by_index(tmp_path):
     assert jax_render.save_detections(tmp_path / "j", 7, img).name == "000007.png"
 
 
-def _expected_pngs(images_u8):
+def _expected_pngs(images_u8, d2h_half=False):
     """The port's pipeline and render of the CLI's batches (the seeded SSD
     build_ssd makes without a weights file, batch statistics, padding as the
     CLI pads)."""
-    run = build_detection_pipeline(SSD(num_classes=21, seed=0), True, IMSIZE, device="cpu")
+    run = build_detection_pipeline(SSD(num_classes=21, seed=0), True, IMSIZE, device="cpu", d2h_half=d2h_half)
     labelmap = LabelMap("PascalVOC")
     out = []
     for start in range(0, len(images_u8), BATCH):
@@ -112,15 +112,26 @@ def test_cli_main_renders_the_pipeline_detections(tmp_path, records, source):
         np.testing.assert_array_equal(np.asarray(Image.open(path).convert("RGB")), w)
 
 
+@pytest.mark.parametrize("flags", [["--batches_per_dispatch", "2"], ["--batches_per_dispatch", "3", "--d2h_half"]])
+def test_cli_flags_render_the_same_pngs(tmp_path, records, flags):
+    """K batches a call: the plain run's PNGs; float16 rows: the render of the
+    float16-rounded rows, pixel for pixel, numbered as before."""
+    out = inference.main(CLI_ARGS + ["--records_dir", str(records), "--result_dir", str(tmp_path)] + flags)
+    names = [p.name for p in out["paths"]]
+    assert names == [f"{i:06}.png" for i in range(1, 5)]
+    want = _expected_pngs(np.asarray(RecordDataset(records).images), d2h_half="--d2h_half" in flags)
+    for path, w in zip(out["paths"], want):
+        np.testing.assert_array_equal(np.asarray(Image.open(path).convert("RGB")), w)
+
+
 def test_cli_needs_pil(tmp_path, monkeypatch):
     monkeypatch.setitem(sys.modules, "PIL", None)
     with pytest.raises(ImportError, match="pillow"):
         inference.main(CLI_ARGS + ["--data_dirs", str(FIXTURE), "--result_dir", str(tmp_path)])
 
 
-@pytest.mark.parametrize("flags,item", [(["--batches_per_dispatch", "2"], "G"), (["--d2h_half"], "G"),
-                                        (["--export_pipeline", "x.bin"], "G"), (["--distributed"], "G"),
-                                        (["--num_devices", "2"], "G"), (["--trunk_int8"], "F"),
+@pytest.mark.parametrize("flags,item", [(["--distributed"], "G"), (["--num_devices", "2"], "G"),
+                                        (["--trunk_int8"], "F"),
                                         (["--full_int8"], "F")])
 def test_cli_unported_flags_raise(tmp_path, flags, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 {item}"):

@@ -302,3 +302,35 @@ def test_mask_scratch_bytes():
     assert nms_cuda.mask_scratch_bytes(2, 65) == 2 * 65 * 2 * 8
     assert nms_cuda.mask_scratch_bytes(32, 8732) == 32 * 8732 * 137 * 8
     assert nms_cuda.mask_scratch_bytes(32, 8732) < nms_cuda.MASK_SCRATCH_CAP_BYTES
+
+
+@pytest.mark.parametrize("n,p,cap,want", [
+    (32, 8732, None, [(0, 32)]),
+    (224, 8732, None, [(0, 224)]),
+    (225, 8732, None, [(0, 224), (224, 225)]),
+    (256, 8732, None, [(0, 224), (224, 256)]),
+    (1000, 8732, None, [(0, 224), (224, 448), (448, 672), (672, 896), (896, 1000)]),
+    (7, 64, 3 * 64 * 8, [(0, 3), (3, 6), (6, 7)]),
+    (6, 64, 3 * 64 * 8, [(0, 3), (3, 6)]),
+    (6, 64, 3 * 64 * 8 + 7, [(0, 3), (3, 6)]),
+    (5, 65, 65 * 2 * 8, [(i, i + 1) for i in range(5)]),
+    (0, 8732, None, []),
+])
+def test_sweep_slices(n, p, cap, want):
+    """A batch's NMS sweep in slices whose mask scratch fits the cap: 224
+    images at P 8732 under the 2 GiB cap, as few slices as possible, all but
+    the last full."""
+    cap = nms_cuda.MASK_SCRATCH_CAP_BYTES if cap is None else cap
+    got = nms_cuda.sweep_slices(n, p, cap)
+    assert got == want
+    assert all(nms_cuda.mask_scratch_bytes(stop - start, p) <= cap for start, stop in got)
+
+
+def test_sweep_slices_refuses_an_image_above_the_cap():
+    assert nms_cuda.MASK_SCRATCH_CAP_BYTES // nms_cuda.mask_scratch_bytes(1, 8732) == 224
+    with pytest.raises(ValueError, match="one image"):
+        nms_cuda.sweep_slices(2, 65, 65 * 2 * 8 - 1)
+    # SSD's P is far from the one-image limit (p = 131,072 fills 2 GiB)
+    assert nms_cuda.sweep_slices(1, 131072) == [(0, 1)]
+    with pytest.raises(ValueError, match="one image"):
+        nms_cuda.sweep_slices(1, 131073)

@@ -314,8 +314,10 @@ def test_trainer_refusals():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             Trainer(model, default_boxes=df)
-    for kwargs in ({"mesh": object()}, {"quant": {}}, {"loss_kind": "cross_entropy"}):
+    for kwargs in ({"mesh": object()}, {"quant": {}}):
         with pytest.raises(NotImplementedError):
             Trainer(model, default_boxes=df, device="cpu", **kwargs)
-    with pytest.raises(ValueError):
+    with pytest.raises(ValueError, match="default_boxes"):
         Trainer(model, device="cpu")
+    with pytest.raises(ValueError, match="loss_kind"):
+        Trainer(model, loss_kind="hinge", device="cpu")

@@ -131,3 +131,40 @@ def test_eval_forward_after_training(trajectory):
     d = np.abs(out[:, :128, :].numpy() - g["out_eval_after"])
     assert d.max() < 3e-2, f"eval-after maxabs {d.max():.2e}"
     assert d.mean() < 3e-3, f"eval-after mean {d.mean():.2e}"
+
+
+# the JAX package's bfloat16 budget (tests/test_bf16_budget.py:28-30)
+BF16_MAX_LOSS_DRIFT = 0.02
+BF16_EVAL_FWD_MAXABS = 0.6
+BF16_EVAL_FWD_MEAN = 0.1
+
+
+@pytest.mark.slow
+def test_bf16_trajectory_within_budget(goldens):
+    """The same 20-step replay in bfloat16 (float32 parameters, bfloat16
+    compute, conv_1_2 through `conv12_kernel=True`), held to the JAX
+    package's budget against the float32 reference: max relative loss drift
+    < 0.02, post-training eval forward (first 128 anchors) max |d| < 0.6 and
+    mean < 0.1."""
+    g = goldens("train_trajectory")
+    steps, spe, bs = int(g["steps"]), int(g["steps_per_epoch"]), int(g["bs"])
+    sd = ssd_state_dict_from_torch(synth_scaled_state_dict_from_manifest(g["manifest_keys"], g["manifest_shapes"]))
+    trainer = Trainer(SSD(num_classes=21, dtype=torch.bfloat16, conv12_kernel=True), default_boxes=default_boxes(),
+                      device="cpu")
+    schedule = exponential_epoch_schedule(float(g["lr"]), float(g["gamma"]), spe)
+    state = trainer.init_state(lambda ps: adam_torch(ps, schedule, weight_decay=float(g["weight_decay"])),
+                               state_dict=sd)
+    losses = []
+    for step in range(steps):
+        images, targets = synth_trajectory_batch(step, n=bs)
+        losses.append(float(trainer.train_step(state, _nhwc(images), targets)))
+    ref = g["losses"]
+    drift = np.abs(np.array(losses) - ref) / np.maximum(np.abs(ref), 1e-9)
+    assert np.isfinite(losses).all()
+    assert drift.max() < BF16_MAX_LOSS_DRIFT, f"bf16 loss drift {drift.max():.2e} at step {drift.argmax()}"
+    images0, _ = synth_trajectory_batch(0, n=bs)
+    with torch.no_grad():
+        out = state.model.eval()(_nhwc(images0), use_batch_stats=False)
+    d = np.abs(out[:, :128, :].numpy() - g["out_eval_after"])
+    assert d.max() < BF16_EVAL_FWD_MAXABS, f"bf16 eval-after maxabs {d.max():.3f}"
+    assert d.mean() < BF16_EVAL_FWD_MEAN, f"bf16 eval-after mean {d.mean():.4f}"
