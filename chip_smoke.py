@@ -1,6 +1,7 @@
 """Drives the PyTorch/CUDA port's serving, evaluation and training paths, its
 training (both purposes), inference and evaluation CLIs, its serving
-plumbing and its exported pipeline on one CUDA card, and checks them.
+plumbing, its exported pipeline and its int8 paths on one CUDA card, and
+checks them.
 
     python3 chip_smoke.py [--out results.json]
 
@@ -9,8 +10,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
 2. build: the CUDA kernels from object_detection_torch2_tpu_torch/csrc/, one
    nvcc per source, all started together, with nvcc's register, spill and
    shared-memory report and each library's count of tensor-core
-   instructions (HMMA, HGMMA) in cuobjdump -sass; the bfloat16 conv_1_2
-   library must have some;
+   instructions (HMMA, HGMMA, IMMA, IGMMA) in cuobjdump -sass; the bfloat16
+   conv_1_2 library must have some, and the int8 conv library some IMMA or
+   IGMMA;
 3. reference: the port's SSD forward on the card against the reference
    forward golden (tests/goldens/ssd_forward_pinned.npz) at its pinned
    tolerances, in float32 (which also proves cuDNN's TF32 is off) and bfloat16;
@@ -103,7 +105,29 @@ Phases (any failure raises and exits non-zero; nothing is caught):
 15. device cache: the training CLI with `--device_cache` against streaming
    (bfloat16, 2 epochs, --orbax_dir): losses and weights file bit-equal; H2D
    bytes a step and img/s;
-16. the kernels line (JSON; launches summed over the paths that ran each
+16. int8: the int8 conv kernel (csrc/int8_conv.cu) against `int8_conv_plain`
+   on the card at every quantizable layer of SSD300 at batch 32, 300x300
+   (conv_1_2, blocks 2-5, extras 6-11, the six heads) and at a ragged shape,
+   from seeded numpy operands: the raw int32 sums and the float32 and
+   bfloat16 epilogues bit-equal; per layer the kernel's ms (bfloat16
+   epilogue) beside its bound, cuDNN's bfloat16 conv and torch._int_mm on
+   the im2col'd operands (the GEMM alone). Then, each with its int8 launch
+   count reset just before and read just after: `Trainer(quant=)` at batch
+   32, G = 64, both dtypes (11 int8 launches and the dtype's conv12 launch a
+   forward, trunk bit-unchanged, ms per step against the float step in
+   turns); `cli.train --trunk_int8` in bfloat16, 2 epochs (quant.json with 12
+   layers); `cli.evaluate --trunk_int8` and `--full_int8` in bfloat16 over 70
+   records with ground truth planted on the int8 Predictor's own top-3
+   detections (parity mAP 1.0, 3 NMS launches, 11 or 27 int8 launches a
+   batch; the full run writes quant_full.json equal to the calibration and a
+   second run loads it with the same APs; batch 0's matches through the plain
+   int8 conv and plain sweep identical); `cli.inference --export_pipeline
+   --trunk_int8` for cuda (11 int8 op calls in the graph, the live int8
+   pipeline's rows); accuracy against float with random weights, float32:
+   the JAX package's thresholds at its tests' sizes (trunk at 5_3, 64x64:
+   cosine > 0.97; full int8, 264x264: > 0.95), and at 300x300 both above
+   0.95;
+17. the kernels line (JSON; launches summed over the paths that ran each
    kernel, by path), then the last line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
@@ -1486,6 +1510,481 @@ def phase_serving_plumbing(card: str) -> dict:
     return res
 
 
+# dense int8 on the tensor cores
+PEAK_INT8_OPS_PER_S = 1979e12
+INT8_RAGGED = (3, 128, 37, 50, 100, 3, 1, 1)  # odd N, Ho != Wo, a head's Cout
+
+
+def int8_layer_shapes() -> list:
+    """(layer, N, Cin, H, W, Cout, kernel, stride, pad) of every quantizable
+    conv of SSD300 at BATCH and IMSIZE (conv_1_2, blocks 2-5, extras 6-11,
+    the six heads), from the port's layer table."""
+    from object_detection_torch2_tpu_torch.models.ssd import DETECTOR_TAPS, LAYER_SPECS
+
+    batch, rows, h, out_hw = BATCH, [], IMSIZE, {}
+    for suffix, cin, cout, k, s, p, pool in LAYER_SPECS:
+        if suffix != "1_1":
+            rows.append((suffix, batch, cin, h, h, cout, k, s, p))
+        h = (h + 2 * p - k) // s + 1
+        out_hw[suffix] = (h, cout)
+        if pool is not None:
+            h = (h + (2 if pool == "M_P" else 0)) // 2
+    for suffix, a in DETECTOR_TAPS:
+        hw, cin = out_hw[suffix]
+        rows.append((f"det_{suffix}", batch, cin, hw, hw, a * 25, 3, 1, 1))
+    return rows
+
+
+def int8_bound(shape) -> dict:
+    """The least time of one int8 conv with the bfloat16 epilogue: 2*M*Cout*K
+    operations at the dense int8 rate, or x, w and the scale and bias read
+    once and y (bfloat16) written once at HBM's rate."""
+    _, n, cin, h, w, cout, k, s, p = shape
+    ho, wo = (h + 2 * p - k) // s + 1, (w + 2 * p - k) // s + 1
+    m, kk = n * ho * wo, k * k * cin
+    ops = 2 * m * cout * kk
+    bytes_moved = n * h * w * cin + cout * kk + 4 * cout + 2 * cout + 2 * m * cout
+    bytes_ms, ops_ms = bytes_moved / PEAK_BYTES_PER_S * 1e3, ops / PEAK_INT8_OPS_PER_S * 1e3
+    return {"bound_ms": max(bytes_ms, ops_ms), "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bytes": bytes_moved, "operations": ops}
+
+
+def int8_case(shape, seed: int):
+    """Seeded operands of one int8 conv: x8 at post-ReLU scale (0..127, about
+    half zeros) channels_last, w8 over the full int8 range (Cout, kh, kw,
+    Cin), the dequant scale sx * sw of a 4.0 amax and 0.05-amax weights, a
+    bias of 0.1 scale."""
+    _, n, cin, h, w, cout, k, _, _ = shape
+    rng = np.random.default_rng(seed)
+    x8 = np.maximum(rng.integers(-127, 128, (n, h, w, cin), dtype=np.int8), 0)
+    w8 = rng.integers(-127, 128, (cout, k, k, cin), dtype=np.int8)
+    scale = (np.float32(4.0 / 127) * rng.uniform(0.5, 1.0, cout) * np.float32(0.05 / 127)).astype(np.float32)
+    bias = (0.1 * rng.standard_normal(cout)).astype(np.float32)
+    return (torch.from_numpy(x8).to(DEVICE).permute(0, 3, 1, 2), torch.from_numpy(w8).to(DEVICE),
+            torch.from_numpy(scale).to(DEVICE), torch.from_numpy(bias).to(DEVICE))
+
+
+def im2col_int8(x8: torch.Tensor, k: int, stride: int, pad: int) -> torch.Tensor:
+    """(M, K) int8 rows of the conv's implicit GEMM, K ordered (Cin, kh, kw)
+    as w.reshape(Cout, -1): through a float16 unfold (int8 values are exact
+    in float16)."""
+    n, cin = x8.shape[:2]
+    if k == 1 and stride == 1 and pad == 0:
+        return x8.permute(0, 2, 3, 1).reshape(-1, cin)
+    cols = F.unfold(x8.to(torch.float16), k, padding=pad, stride=stride)  # (N, Cin*k*k, L)
+    return cols.transpose(1, 2).reshape(-1, cin * k * k).to(torch.int8).contiguous()
+
+
+def compare_int8(shape, seed: int, timed: bool) -> dict:
+    """The kernel against int8_conv_plain on the card at one shape: the raw
+    int32 sums and the float32 and bfloat16 epilogues bit-equal. Timed: the
+    kernel (bfloat16 epilogue), the plain version, F.conv2d in bfloat16
+    (cuDNN) on the same shape, and torch._int_mm on the im2col'd operands
+    (the library GEMM alone: no im2col, no epilogue; Cout padded to a
+    multiple of 8 where it is not one)."""
+    from object_detection_torch2_tpu_torch.ops import int8_conv_cuda
+    from object_detection_torch2_tpu_torch.ops.int8_conv import dequantize, int8_conv_plain
+
+    name, _, cin, _, _, cout, k, s, p = shape
+    x8, w8, scale, bias = int8_case(shape, seed)
+    acc = int8_conv_plain(x8, w8, None, None, s, p)
+    r = {"layer": name, "shape": list(shape[1:])}
+    for mode, sc, b, dtype in (("int32", None, None, None), ("float32", scale, bias, torch.float32),
+                               ("bfloat16", scale, bias.bfloat16(), torch.bfloat16)):
+        got = int8_conv_cuda.int8_conv_cuda(x8, w8, sc, b, s, p, dtype)
+        want = acc if sc is None else dequantize(acc, sc, b, dtype)
+        torch.cuda.synchronize()
+        if got.shape != want.shape or got.dtype != want.dtype or not torch.equal(got, want):
+            err = float((got.double() - want.double()).abs().max()) if got.shape == want.shape else float("inf")
+            raise AssertionError(f"int8 conv kernel differs from its plain version at {name} {shape[1:]} ({mode} "
+                                 f"output): max |d| {err}")
+    r["bit_equal"] = True
+    if timed:
+        bb = bias.bfloat16()
+        r["kernel_ms"] = time_ms(lambda: int8_conv_cuda.int8_conv_cuda(x8, w8, scale, bb, s, p, torch.bfloat16),
+                                 reps=5)
+        r["plain_ms"] = time_ms(lambda: int8_conv_plain(x8, w8, scale, bb, s, p, torch.bfloat16), reps=1, trials=3,
+                                warmup=1)
+        xb, wb = x8.to(torch.bfloat16), w8.permute(0, 3, 1, 2).to(torch.bfloat16).contiguous()
+        r["cudnn_bf16_ms"] = time_ms(lambda: F.conv2d(xb, wb, bb, stride=s, padding=p), reps=5)
+        a = im2col_int8(x8, k, s, p)
+        wm = w8.permute(0, 3, 1, 2).reshape(cout, -1)
+        npad = -(-cout // 8) * 8
+        if npad != cout:
+            wm = torch.cat([wm, torch.zeros((npad - cout, wm.shape[1]), dtype=torch.int8, device=DEVICE)])
+        bmat = wm.t()  # (K, N), column-major
+        try:
+            r["int_mm_ms"] = time_ms(lambda: torch._int_mm(a, bmat), reps=5) if a.shape[0] > 16 else None
+        except RuntimeError as e:  # a yardstick only: the library's shape rules vary across versions
+            r["int_mm_ms"], r["int_mm_error"] = None, str(e).splitlines()[0]
+        r["int_mm_cout"] = npad
+        r.update(int8_bound(shape))
+        del xb, wb, a
+    del x8, acc
+    torch.cuda.empty_cache()
+    return r
+
+
+def int8_layer_table(card: str, timed: bool = True) -> dict:
+    """compare_int8 at every quantizable layer of SSD300 at batch 32 and
+    300x300 (conv_1_2, the 11 trunk layers, 10 extras, 6 heads) and at a
+    ragged shape; the sums over blocks 2-5 (the --trunk_int8 main path) and
+    over the 27 layers of --full_int8."""
+    from object_detection_torch2_tpu_torch.models.quant import FULL_QUANT_LAYERS, QUANT_LAYERS
+
+    rows = [compare_int8(shape, i, timed) for i, shape in enumerate(int8_layer_shapes())]
+    ragged = compare_int8(("ragged",) + INT8_RAGGED, 99, timed=False)
+    res = {"layers": rows, "ragged": ragged}
+    if timed:
+        for key, names in (("trunk", QUANT_LAYERS[1:]), ("full", FULL_QUANT_LAYERS[1:])):
+            sel = [r for r in rows if r["layer"] in names]
+            sums = {f: sum(r[f] for r in sel) for f in ("kernel_ms", "plain_ms", "cudnn_bf16_ms", "bound_ms",
+                                                        "operations", "bytes")}
+            sums["int_mm_ms"] = (sum(r["int_mm_ms"] for r in sel) if all(r["int_mm_ms"] is not None for r in sel)
+                                 else None)
+            res[key] = {**sums, "layers": len(sel)}
+        for r in rows:
+            print(f"  int8 {r['layer']:>8} {r['shape']}: kernel {r['kernel_ms']:.4f} ms, bound {r['bound_ms']:.4f} "
+                  f"({r['bound_by']}), cuDNN bf16 {r['cudnn_bf16_ms']:.4f}, _int_mm (GEMM alone) "
+                  f"{r['int_mm_ms'] if r['int_mm_ms'] is None else round(r['int_mm_ms'], 4)}, plain "
+                  f"{r['plain_ms']:.3f} ({card})")
+    return res
+
+
+def int8_launches(fn) -> tuple:
+    """(fn's result, the int8 kernel's launches during it): the count is set
+    to 0 just before and read just after."""
+    from object_detection_torch2_tpu_torch.ops import int8_conv_cuda
+
+    int8_conv_cuda.kernel_launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, int8_conv_cuda.kernel_launches
+
+
+def cosine(a: torch.Tensor, b: torch.Tensor) -> float:
+    a, b = a.double().flatten(), b.double().flatten()
+    return float(a @ b / (a.norm() * b.norm() + 1e-12))
+
+
+def int8_trainer_check(card: str) -> dict:
+    """Trainer(quant=) at batch 32, G = 64 with the conv12 kernel, in both
+    dtypes: 11 int8 launches and one conv12 launch of the dtype's kernel a
+    forward, the trunk bit-unchanged, finite losses, ms per step against the
+    float trainer's in turns (float, int8, int8, float)."""
+    from object_detection_torch2_tpu_torch.core.anchors import default_boxes, feature_grids_for
+    from object_detection_torch2_tpu_torch.models.quant import calibrate_trunk
+    from object_detection_torch2_tpu_torch.models.ssd import SSD
+    from object_detection_torch2_tpu_torch.ops import conv12_cuda
+    from object_detection_torch2_tpu_torch.train.optimizer import adam_torch, exponential_epoch_schedule
+    from object_detection_torch2_tpu_torch.train.trainer import Trainer
+
+    df = default_boxes(feature_grids_for(IMSIZE))
+    rng = np.random.default_rng(77)
+    images = rng.integers(0, 256, (4, BATCH, IMSIZE, IMSIZE, 3), dtype=np.uint8)
+    targets = np.stack([synth_targets(rng, BATCH, rng.integers(1, G_PAD + 1, BATCH), G_PAD) for _ in range(4)])
+    res = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).replace("torch.", "")
+        float_model = SSD(num_classes=21, dtype=dtype, seed=0, conv12_kernel=True).to(DEVICE)
+        qd = calibrate_trunk(float_model, [images[0]], margin=1.25)
+        trainers = {}
+        for kind in ("float", "int8"):
+            model = SSD(num_classes=21, dtype=dtype, seed=0, conv12_kernel=True, trunk_int8=kind == "int8")
+            tr = Trainer(model, default_boxes=df, quant=qd if kind == "int8" else None)
+            st = tr.init_state(lambda ps: adam_torch(ps, exponential_epoch_schedule(1e-3, 0.7, 4), weight_decay=5e-4))
+            trainers[kind] = (tr, st)
+        tr, st = trainers["int8"]
+        frozen0 = {k: v.clone() for k, v in st.frozen.items()}
+        conv12_cuda.kernel_launches.update(dict.fromkeys(conv12_cuda.kernel_launches, 0))
+        losses, launches = int8_launches(lambda: [float(tr.train_step(st, images[i], targets[i])) for i in range(3)])
+        conv12_launches = conv12_cuda.kernel_launches[conv12_cuda.KERNEL_OF[dtype]]
+        if launches != 3 * 11 or conv12_launches != 3:
+            raise AssertionError(f"int8 Trainer {name}: {launches} int8 and {conv12_launches} conv12 launches in 3 "
+                                 f"steps, not 33 and 3")
+        if not np.isfinite(losses).all():
+            raise AssertionError(f"int8 Trainer {name}: non-finite losses {losses}")
+        for key, p in st.frozen.items():
+            if not torch.equal(p, frozen0[key]):
+                raise AssertionError(f"int8 Trainer {name}: frozen {key} changed")
+        times = {"float": [], "int8": []}
+        for kind in ("float", "int8", "int8", "float"):
+            t, s = trainers[kind]
+            for i in range(4):
+                e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                e0.record()
+                t.train_step(s, images[i], targets[i])
+                e1.record()
+                e1.synchronize()
+                times[kind].append(e0.elapsed_time(e1))
+        ms = {k: statistics.median(v) for k, v in times.items()}
+        res[name] = {"int8_launches": launches, "conv12_launches": conv12_launches, "losses": losses,
+                     "step_ms_float": ms["float"], "step_ms_int8": ms["int8"], "scales": qd}
+        print(f"int8 Trainer {name} bs{BATCH} G{G_PAD}: 3 steps, int8 launches {launches}, conv12 "
+              f"({conv12_cuda.KERNEL_OF[dtype]}) launches {conv12_launches}, losses {losses[0]:.4f} -> "
+              f"{losses[-1]:.4f}, trunk bit-unchanged; {ms['int8']:.2f} ms/step against {ms['float']:.2f} float "
+              f"(in turns, CUDA events) ({card})")
+        del trainers, tr, st, float_model
+        torch.cuda.empty_cache()
+    return res
+
+
+def int8_train_cli_check(card: str, records: Path, tmp: Path) -> dict:
+    """cli.train --trunk_int8 in bfloat16, 2 epochs of 4 steps and a
+    validation batch: calibration (the float path, whose conv_1_2 is the
+    bfloat16 conv12 kernel) over the first batches writes quant.json (the 12
+    layers), then every forward (train steps and validation) launches the
+    int8 kernel 11 times and the conv12 kernel once."""
+    from object_detection_torch2_tpu_torch.cli import train
+    from object_detection_torch2_tpu_torch.models.quant import QUANT_LAYERS
+    from object_detection_torch2_tpu_torch.ops import conv12_cuda
+
+    argv = ["--records_dir", str(records / "train"), "--val_records_dir", str(records / "val"), "--batch_size",
+            str(BATCH), "--steps_per_epoch", str(CLI_STEPS), "--imsize", str(IMSIZE), "--dtype", "bfloat16",
+            "--epochs", "2", "--result_dir", str(tmp / "result"), "--log_dir", str(tmp / "logs"), "--val_aug", "none",
+            "--trunk_int8"]
+    conv12_cuda.kernel_launches.update(dict.fromkeys(conv12_cuda.kernel_launches, 0))
+    t0 = time.perf_counter()
+    out, launches = int8_launches(lambda: train.main(argv))
+    main_s = time.perf_counter() - t0
+    forwards = 2 * (CLI_STEPS + VAL_RECORDS // BATCH)
+    calib = min(8, -(-TRAIN_RECORDS // BATCH))  # --calib_batches 8
+    qd = json.loads((tmp / "result" / "detection" / "quant.json").read_text())
+    conv12 = conv12_cuda.kernel_launches["conv12_bf16"]
+    if (set(qd) != {f"amax_{layer}" for layer in QUANT_LAYERS} or launches != 11 * forwards
+            or conv12 != forwards + calib):
+        raise AssertionError(f"training CLI --trunk_int8: quant.json keys {sorted(qd)}, {launches} int8 and "
+                             f"{conv12} conv12 launches for {forwards} forwards and {calib} calibration batches")
+    losses = torch.cat(out["losses"]).float().cpu()
+    if not bool(torch.isfinite(losses).all()):
+        raise AssertionError(f"training CLI --trunk_int8: non-finite loss {losses.tolist()}")
+    row = out["phase_times"][-1]
+    print(f"training CLI --trunk_int8 bfloat16 bs{BATCH}: quant.json with {len(qd)} layers calibrated over {calib} "
+          f"batches, 2 epochs, int8 launches {launches} and conv12 {conv12} for {forwards} forwards and the "
+          f"calibration; epoch 2 train loop "
+          f"{row['img_per_s_train_loop']} img/s, wall {row['img_per_s_wall']}; main() {main_s:.1f} s ({card})")
+    return {"launches": launches, "conv12_launches": conv12, "quant_keys": len(qd), "losses": losses.tolist(),
+            "phase_times": out["phase_times"], "main_s": main_s}
+
+
+def int8_eval_check(card: str, mode: str, tmp: Path) -> dict:
+    """cli.evaluate with --trunk_int8 (scales in quant.json) or --full_int8
+    (calibrated by the CLI over the records' first batches and written to
+    quant_full.json; a second run loads it), bfloat16, over 70 seeded records
+    whose ground truth is planted on the int8 Predictor's own top-3
+    detections: parity mAP 1.0, one NMS launch a batch, 11 or 27 int8
+    launches a batch, batch 0's matches through the plain int8 conv and the
+    plain sweep identical to the pipeline's."""
+    from object_detection_torch2_tpu_torch.cli import evaluate
+    from object_detection_torch2_tpu_torch.core.anchors import default_boxes, feature_grids_for
+    from object_detection_torch2_tpu_torch.data.augment import to_tensor_batch
+    from object_detection_torch2_tpu_torch.infer import Predictor, postprocess
+    from object_detection_torch2_tpu_torch.metrics.assign import detection_matches
+    from object_detection_torch2_tpu_torch.models import quant
+    from object_detection_torch2_tpu_torch.models import ssd as ssd_mod
+    from object_detection_torch2_tpu_torch.models.ssd import SSD
+    from object_detection_torch2_tpu_torch.ops import nms, nms_cuda
+    from object_detection_torch2_tpu_torch.ops.int8_conv import int8_conv_plain
+    from object_detection_torch2_tpu_torch.ops.scores import expand_detections
+    from object_detection_torch2_tpu_torch.train.checkpoint import save_weights
+
+    images = np.random.default_rng(31).integers(0, 256, (N_IMAGES, IMSIZE, IMSIZE, 3), dtype=np.uint8)
+    n_batches = -(-N_IMAGES // BATCH)
+    per_forward = 11 if mode == "trunk_int8" else 27
+    model = SSD(num_classes=21, dtype=torch.bfloat16, seed=0).to(DEVICE)
+    result = tmp / mode / "result"
+    save_weights(result / "detection" / "weights.msgpack", model)
+    calib = [images[i:i + BATCH] for i in range(0, N_IMAGES, BATCH)]  # the CLI's first --calib_batches batches
+    if mode == "trunk_int8":
+        qd = quant.calibrate_trunk(model, calib, margin=1.25)
+        quant.save_quant(result / "detection" / "quant.json", qd)
+        model.trunk_int8 = True
+    else:
+        qd = quant.calibrate_full(model, calib, margin=1.25)
+        model.full_int8 = True
+    model.set_quant(qd)
+    gts = plant_gts(Predictor(model, imsize=IMSIZE, batch_size=BATCH).predict(images))
+    write_records(tmp / mode / "records", images, gts)
+    argv = ["--records_dir", str(tmp / mode / "records"), "--result_dir", str(result), "--batch_size", str(BATCH),
+            "--imsize", str(IMSIZE), "--dtype", "bfloat16", f"--{mode}"]
+    runs = []
+    for _ in range(1 if mode == "trunk_int8" else 2):
+        nms_cuda.launches = 0
+        t0 = time.perf_counter()
+        (aps, mean_ap, _, _), launches = int8_launches(lambda: evaluate.main(argv))
+        runs.append({"mean_ap": mean_ap, "aps": [float(a) for a in aps], "int8_launches": launches,
+                     "nms_launches": nms_cuda.launches, "main_s": time.perf_counter() - t0})
+        if not abs(mean_ap - 1.0) <= 1e-6 or nms_cuda.launches != n_batches or launches != per_forward * n_batches:
+            raise AssertionError(f"evaluate --{mode}: parity mAP {mean_ap!r}, {nms_cuda.launches} NMS and {launches} "
+                                 f"int8 launches for {n_batches} batches")
+    if mode == "full_int8":
+        written = json.loads((result / "detection" / "quant_full.json").read_text())
+        same_aps = np.array_equal(runs[0]["aps"], runs[1]["aps"], equal_nan=True)  # NaN: a class without GT
+        if written != qd or not same_aps:
+            raise AssertionError(f"evaluate --full_int8: quant_full.json equal to the calibration {written == qd}, "
+                                 f"the loading run's APs equal {same_aps}")
+
+    # batch 0: the pipeline's matches (int8 kernel, NMS kernel) against the
+    # plain int8 conv and the plain sweep on the same batch
+    run = evaluate.build_eval_pipeline(model, True, IMSIZE, 20, device=DEVICE)
+    got, _ = run(images[:BATCH], gts[:BATCH], BATCH)
+    df = torch.from_numpy(default_boxes(feature_grids_for(IMSIZE)).copy()).to(DEVICE)
+    mask = torch.ones(BATCH, device=DEVICE)
+    real_conv, ssd_mod.int8_conv = ssd_mod.int8_conv, int8_conv_plain
+    try:
+        with torch.inference_mode():
+            out = model(to_tensor_batch(torch.from_numpy(images[:BATCH]).to(DEVICE)), use_batch_stats=True,
+                        batch_mask=mask)
+    finally:
+        ssd_mod.int8_conv = real_conv
+    with torch.inference_mode():
+        packed, _ = postprocess(out, df, mask, sweep=nms._blocked_keep_sorted)
+        want = detection_matches(expand_detections(packed[..., :4], packed[..., 4].long(), packed[..., 5], 21),
+                                 torch.from_numpy(gts[:BATCH]).to(DEVICE), num_classes=20)
+    for key in want:
+        if not torch.equal(got[key], want[key]):
+            raise AssertionError(f"evaluate --{mode}: batch-0 matches '{key}' differ between the kernels and the "
+                                 f"plain int8 conv and sweep")
+    print(f"evaluation CLI --{mode} bfloat16 bs{BATCH}: parity mAP {runs[0]['mean_ap']:.7f} on ground truth planted "
+          f"on the int8 model's detections, NMS launches {runs[0]['nms_launches']}, int8 launches "
+          f"{runs[0]['int8_launches']} for {n_batches} batches"
+          + (", quant_full.json written by the first run equal to the calibration and loaded by the second (same "
+             "APs)" if mode == "full_int8" else "")
+          + f"; batch-0 matches identical through the plain int8 conv and plain sweep; main() "
+          f"{runs[0]['main_s']:.1f} s ({card})")
+    del model, run
+    torch.cuda.empty_cache()
+    return {"runs": runs, "launches": sum(r["int8_launches"] for r in runs), "scales": qd}
+
+
+def int8_accuracy_check(card: str) -> dict:
+    """Random seeded weights (the worst case for quantization), float32: the
+    JAX package's thresholds at its own tests' sizes (tests/test_quant.py):
+    the int8 trunk against the float trunk at up_to 5_3 at 64x64, batch 2,
+    cosine > 0.97; full int8 against float at the output at 264x264, batch
+    2, cosine > 0.95. At the main path's 300x300 (batch 4) both cosines are
+    reported and held above 0.95: quantization error grows with the map
+    sizes, so the 64x64 trunk floor is not a 300x300 one."""
+    from object_detection_torch2_tpu_torch.models import quant
+    from object_detection_torch2_tpu_torch.models.ssd import SSD
+
+    model = SSD(num_classes=21, seed=0).to(DEVICE)
+    res = {}
+    cases = (("trunk_int8", 64, 2, 0.97), ("full_int8", 264, 2, 0.95), ("trunk_int8", IMSIZE, 4, 0.95),
+             ("full_int8", IMSIZE, 4, 0.95))
+    with torch.no_grad():
+        for mode, size, n, floor in cases:
+            x = torch.from_numpy(np.random.default_rng(41).random((n, size, size, 3)).astype(np.float32)).to(DEVICE)
+            up_to = "5_3" if mode == "trunk_int8" else None
+            qd = quant.calibrate_trunk(model, [x]) if mode == "trunk_int8" else quant.calibrate_full(model, [x])
+            ref = model(x, up_to=up_to)
+            q = SSD(num_classes=21, seed=0, **{mode: True}).to(DEVICE)
+            q.set_quant(qd)
+            out = q(x, up_to=up_to)
+            key = f"{mode}_{size}_bs{n}"
+            res[key] = {"cosine": cosine(out, ref), "std_ratio": float(out.double().std() / ref.double().std()),
+                        "batch": n, "floor": floor}
+            if not res[key]["cosine"] > floor or not bool(torch.isfinite(out).all()):
+                raise AssertionError(f"{mode} at {size}x{size} against float: cosine {res[key]['cosine']} "
+                                     f"(floor {floor})")
+    print("int8 accuracy float32 (random weights): " + ", ".join(
+        f"{k} bs{v['batch']} cosine {v['cosine']:.5f} (> {v['floor']}; std ratio {v['std_ratio']:.4f})"
+        for k, v in res.items()) + f" ({card})")
+    return res
+
+
+def int8_export_check(card: str, tmp: Path) -> dict:
+    """cli.inference --export_pipeline --trunk_int8 for cuda: the program holds
+    11 calls of torch.ops.odt.int8_conv, reloads, and gives the live int8
+    pipeline's rows with 11 int8 launches."""
+    import io
+    import zipfile
+
+    from object_detection_torch2_tpu_torch.cli import inference
+    from object_detection_torch2_tpu_torch.infer import build_detection_pipeline
+    from object_detection_torch2_tpu_torch.models.quant import load_quant
+    from object_detection_torch2_tpu_torch.models.ssd import SSD
+    from object_detection_torch2_tpu_torch.serving import load_detection_pipeline
+
+    result = tmp / "trunk_int8" / "result"  # the weights and quant.json of int8_eval_check
+    path = tmp / "int8_pipeline.bin"
+    argv = ["--result_dir", str(result), "--batch_size", str(BATCH), "--imsize", str(IMSIZE), "--dtype", "bfloat16",
+            "--trunk_int8", "--export_pipeline", str(path), "--export_platforms", "cuda"]
+    t0 = time.perf_counter()
+    inference.main(argv)
+    export_s = time.perf_counter() - t0
+    with zipfile.ZipFile(path) as zf:
+        program = torch.export.load(io.BytesIO(zf.read("cuda.pt2")))
+    calls = sum(1 for n in program.graph.nodes if n.op == "call_function" and "int8_conv" in str(n.target))
+    exported, _ = load_detection_pipeline(path)
+    images = np.random.default_rng(43).integers(0, 256, (BATCH, IMSIZE, IMSIZE, 3), dtype=np.uint8)
+    (packed_x, valid_x), launches = int8_launches(lambda: exported(images, BATCH))
+    model = SSD(num_classes=21, dtype=torch.bfloat16, seed=0, trunk_int8=True)
+    model.set_quant(load_quant(result / "detection" / "quant.json"))
+    packed_l, valid_l = build_detection_pipeline(model, True, IMSIZE, device=DEVICE)(images, BATCH)
+    if calls != 11 or launches != 11 or not (torch.equal(packed_x, packed_l) and torch.equal(valid_x, valid_l)):
+        raise AssertionError(f"exported --trunk_int8 pipeline: {calls} int8 op calls in the graph, {launches} "
+                             f"launches, rows equal to live {torch.equal(packed_x, packed_l)}")
+    print(f"exported pipeline --trunk_int8 bfloat16 bs{BATCH} (cuda, {export_s:.1f} s): {calls} int8_conv calls in "
+          f"the graph, {launches} int8 launches, rows identical to the live int8 pipeline's ({card})")
+    del model, exported
+    torch.cuda.empty_cache()
+    return {"graph_int8_calls": calls, "launches": launches, "export_s": export_s}
+
+
+def phase_int8(card: str) -> dict:
+    """The int8 paths: the kernel against its plain version at every layer
+    (with the per-layer times), the Trainer, the training CLI, the
+    evaluation CLI in both int8 modes, accuracy against float, the export."""
+    t0 = time.perf_counter()
+    res = {"table": int8_layer_table(card)}
+    trunk, full = res["table"]["trunk"], res["table"]["full"]
+    print(f"int8 conv kernel bit-equal to plain (int32, float32 and bfloat16 epilogues) at all "
+          f"{len(res['table']['layers'])} quantizable layers and a ragged {list(INT8_RAGGED[:4])}; blocks 2-5 "
+          f"bs{BATCH}: "
+          f"kernel {trunk['kernel_ms']:.3f} ms, bound {trunk['bound_ms']:.4f} ({trunk['operations'] / 1e12:.3f} T "
+          f"int8 operations), cuDNN bf16 {trunk['cudnn_bf16_ms']:.3f}, _int_mm {trunk['int_mm_ms']}, plain "
+          f"{trunk['plain_ms']:.2f}; all 27 full-int8 layers: kernel {full['kernel_ms']:.3f} ms, bound "
+          f"{full['bound_ms']:.4f} ({card})")
+    res["trainer"] = int8_trainer_check(card)
+    rng = np.random.default_rng(56)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        for split, n in (("train", TRAIN_RECORDS), ("val", VAL_RECORDS)):
+            write_records(tmp / "records" / split, rng.integers(0, 256, (n, IMSIZE, IMSIZE, 3), dtype=np.uint8),
+                          synth_targets(rng, n, rng.integers(1, G_PAD + 1, n), G_PAD))
+        res["train_cli"] = int8_train_cli_check(card, tmp / "records", tmp / "cli")
+        res["evaluation_trunk_int8"] = int8_eval_check(card, "trunk_int8", tmp)
+        res["evaluation_full_int8"] = int8_eval_check(card, "full_int8", tmp)
+        res["export"] = int8_export_check(card, tmp)
+    res["accuracy"] = int8_accuracy_check(card)
+    res["phase_s"] = time.perf_counter() - t0
+    return res
+
+
+def int8_entry(r: dict) -> dict:
+    """The kernels-line entry of int8_conv: times summed over the 11 layers
+    of blocks 2-5 at batch 32 (the --trunk_int8 main path) in the top-level
+    keys, every layer beside them; launches by path."""
+    by_path = {"trainer": sum(r["trainer"][d]["int8_launches"] for d in ("float32", "bfloat16")),
+               "train_cli": r["train_cli"]["launches"],
+               "evaluation_trunk_int8": r["evaluation_trunk_int8"]["launches"],
+               "evaluation_full_int8": r["evaluation_full_int8"]["launches"],
+               "export": r["export"]["launches"]}
+    t = r["table"]["trunk"]
+    return {"name": "int8_conv", "route": "cuda", "custom_op": "odt::int8_conv (ops/registry.py)",
+            "source": "object_detection_torch2_tpu_torch/csrc/int8_conv.cu",
+            "replaces": "object_detection_torch2_tpu/models/quant.py:82 (int8_conv, a lax conv; not a TPU kernel)",
+            "launches": sum(by_path.values()), "launches_by_path": by_path, "max_abs_err": 0.0,
+            "bit_equal_to_plain": True, "ms": t["kernel_ms"], "kernel_ms": t["kernel_ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": "operations" if t["operations"] / PEAK_INT8_OPS_PER_S
+            >= t["bytes"] / PEAK_BYTES_PER_S else "bytes", "library_ms": t["int_mm_ms"],
+            "library": "torch._int_mm on the im2col'd operands (the GEMM alone), summed over blocks 2-5",
+            "cudnn_bf16_ms": t["cudnn_bf16_ms"], "shape": "blocks 2-5 (11 convs) at batch 32, 300x300",
+            "operations": t["operations"], "bytes": t["bytes"], "full_int8_27_layers": r["table"]["full"],
+            "layers": r["table"]["layers"]}
+
+
 def conv12_entry(conv: dict, training: dict, train_cli: dict, trajectory: dict, device_cache: dict) -> dict:
     """The kernels-line entry of conv12: the float32 kernel at the training
     path's shape in the top-level keys, the bfloat16 kernel (its own source)
@@ -1546,6 +2045,8 @@ def main(argv=None) -> int:
         print(f"  {name}: tensor-core instructions in SASS {counts}")
     if sum(sass["conv12_bf16"].values()) == 0:
         raise AssertionError("csrc/conv12_bf16.cu's machine code has no tensor-core instruction")
+    if sass["int8_conv"]["IMMA"] + sass["int8_conv"]["IGMMA"] == 0:
+        raise AssertionError("csrc/int8_conv.cu's machine code has no int8 tensor-core instruction (IMMA, IGMMA)")
 
     results = {"card": card, "sass_tensor_core": sass, "reference": phase_reference(card)}
     results["kernel_vs_plain"] = phase_kernel_vs_plain(card)
@@ -1573,6 +2074,8 @@ def main(argv=None) -> int:
     results["device_cache_cli"] = phase_device_cache_cli(card)
     entries.append(conv12_entry(results["conv12_vs_plain"], results["training"], results["train_cli"],
                                 results["trajectory"], results["device_cache_cli"]))
+    results["int8"] = phase_int8(card)
+    entries.append(int8_entry(results["int8"]))
     results["kernels"] = entries
     if args.out:
         args.out.parent.mkdir(parents=True, exist_ok=True)

@@ -1,5 +1,5 @@
-"""Times the port's two kernels on one CUDA card, for comparing two versions
-of the package in one call:
+"""Times the port's kernels on one CUDA card, for comparing two versions of
+the package in one call:
 
     python3 kernel_times.py [--root DIR] [--label NAME]
 
@@ -33,6 +33,14 @@ call, and the host's µs to enqueue a call (20 calls, no synchronize).
 With --fetch it times evaluation (`cli.evaluate.accumulate`, bfloat16 SSD,
 batch 32, 8 batches of seeded images with no ground truth) with the fetch
 pipeline at depth 0 and depth 2, in turns (0, 2, 2, 0), host clock.
+
+With --int8 it times the int8 conv kernel (csrc/int8_conv.cu, bfloat16
+epilogue) at every quantizable layer of SSD300 at batch 32, 300x300, after
+holding it bit-equal to its plain version there (chip_smoke.py's
+`int8_layer_table`): per layer the kernel's ms, its bound, the plain
+version's, cuDNN's bfloat16 conv and torch._int_mm on the im2col'd operands
+(the GEMM alone), and the sums over blocks 2-5 and over the 27 layers of
+--full_int8; the table for PERF.md.
 
 Run versions in separate processes in turn (A, B, B, A) and compare within
 one call. Imports nothing of JAX.
@@ -252,6 +260,7 @@ def main(argv=None) -> int:
     ap.add_argument("--train_step", action="store_true")
     ap.add_argument("--ops", action="store_true")
     ap.add_argument("--fetch", action="store_true")
+    ap.add_argument("--int8", action="store_true")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("kernel_times: no CUDA device is available")
@@ -282,6 +291,8 @@ def main(argv=None) -> int:
         res.update(ops_ab(sb, sv))
     if args.fetch:
         res.update(fetch_ab())
+    if args.int8:
+        res["int8"] = cs.int8_layer_table(res["card"])
     print(json.dumps(res))
     return 0
 

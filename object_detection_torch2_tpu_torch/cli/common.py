@@ -4,8 +4,18 @@
 The flags and their defaults are the JAX package's. Options whose code is not
 ported yet raise NotImplementedError naming their ROADMAP item: multi-process
 serving (`--distributed`) and a data-parallel mesh (`--num_devices` above 1)
-wait for Queue 1 G2, int8 serving (`--trunk_int8`, `--full_int8`) for
-Queue 1 F. The JAX package's persistent XLA compile cache has no counterpart.
+wait for Queue 1 G2. The JAX package's persistent XLA compile cache has no
+counterpart.
+
+Int8 serving (`apply_int8`): `--trunk_int8` reads the scales the training CLI
+calibrated, `<result_dir>/detection/quant.json`; `--full_int8` (which takes
+precedence) reads `quant_full.json` there when it is complete, else
+calibrates over the first `--calib_batches` batches of the run's dataset and
+writes it. Both files have the JAX package's format. The calibration batches
+are read by index on the host (`calib_image_batches`: the first
+`calib_batches x batch_size` images, in order, the ones the JAX package's
+unshuffled loader yields first), not through the threaded DataLoader, and a
+run calibrates once.
 """
 
 from __future__ import annotations
@@ -58,11 +68,15 @@ def add_common_args(parser, batch_size_default: int):
 
 def add_serving_args(parser):
     """Flags shared by the serving CLIs (inference/evaluate) beyond
-    add_common_args; the int8 and multi-process ones are not ported yet."""
+    add_common_args; the multi-process one is not ported yet."""
     parser.add_argument("--trunk_int8", action="store_true",
-                        help="int8 trunk serving; not ported yet (ROADMAP Queue 1 F)")
+                        help="serve the frozen VGG trunk's blocks 2-5 as int8 convolutions (models/quant.py; "
+                             "the int8 kernel on the card); activation scales are read from "
+                             "<result_dir>/detection/quant.json (written by cli.train --trunk_int8)")
     parser.add_argument("--full_int8", action="store_true",
-                        help="int8 serving of the whole model; not ported yet (ROADMAP Queue 1 F)")
+                        help="serve the WHOLE model as int8 convolutions (trunk, extras and detector heads); "
+                             "scales from <result_dir>/detection/quant_full.json, calibrated over the first "
+                             "--calib_batches batches of this run's dataset when absent or stale")
     parser.add_argument("--calib_batches", type=int, default=8,
                         help="batches for --full_int8 auto-calibration")
     parser.add_argument("--calib_margin", type=float, default=1.25,
@@ -88,11 +102,82 @@ def serving_mesh(args):
     return None
 
 
-def check_int8(args):
-    """`--trunk_int8` and `--full_int8` raise until the int8 slice."""
-    for flag in ("trunk_int8", "full_int8"):
-        if getattr(args, flag, False):
-            raise NotImplementedError(f"--{flag}: int8 serving is not ported yet (ROADMAP Queue 1 F)")
+def calib_image_batches(dataset, n_batches: int, batch_size: int):
+    """The first `n_batches` batches of `dataset` by index, in order (the
+    last may be short), as uint8 numpy images (N, H, W, 3), for int8
+    calibration: read on the host, no DataLoader thread."""
+    n = len(dataset)
+    for b in range(n_batches):
+        lo = b * batch_size
+        if lo >= n:
+            return
+        idx = np.arange(lo, min(lo + batch_size, n))
+        if hasattr(dataset, "batch"):  # RecordDataset: one fancy index
+            yield np.asarray(dataset.batch(idx)[0])
+        else:
+            yield np.stack([np.asarray(dataset[i][0]) for i in idx])
+
+
+def apply_trunk_int8(args, model):
+    """Serving-side --trunk_int8: the model on the int8 trunk path with the
+    calibrated scales of <result_dir>/detection/quant.json (written by
+    cli.train --trunk_int8)."""
+    from object_detection_torch2_tpu_torch.models.quant import load_quant
+
+    qp = Path(args.result_dir) / "detection" / "quant.json"
+    if not qp.exists():
+        raise SystemExit(f"--trunk_int8: {qp} not found — run train.py --trunk_int8 "
+                         f"(auto-calibrates and saves it) first")
+    model.set_quant(load_quant(qp))
+    model.trunk_int8 = True
+    return model
+
+
+def apply_full_int8(args, model, batches, device):
+    """Serving-side --full_int8: the model on the full int8 path (trunk,
+    extras, heads) with scales read from <result_dir>/detection/
+    quant_full.json when it is there and complete, else calibrated over
+    `batches` (uint8 image batches of the run's own dataset) on `device`
+    and written there. The model ends on `device`."""
+    import json
+
+    from object_detection_torch2_tpu_torch.models.quant import (
+        FULL_QUANT_LAYERS,
+        calibrate_full,
+        missing_layers,
+        save_quant,
+    )
+
+    qp = Path(args.result_dir) / "detection" / "quant_full.json"
+    scales = None
+    if qp.exists():
+        scales = json.loads(qp.read_text())
+        stale = missing_layers(scales, FULL_QUANT_LAYERS)
+        if stale:
+            print(f"quant_full.json is stale (no amax for {stale}) — recalibrating")
+            scales = None
+        else:
+            print("full-int8 scales loaded.")
+    model.to(device)
+    if scales is None:
+        scales = calibrate_full(model, batches, margin=args.calib_margin)
+        qp.parent.mkdir(parents=True, exist_ok=True)
+        save_quant(qp, scales)
+        print(f"full-int8 scales calibrated ({args.calib_batches} batches, margin {args.calib_margin}) -> {qp}")
+    model.set_quant(scales)
+    model.full_int8 = True
+    return model
+
+
+def apply_int8(args, model, dataset, device):
+    """--full_int8 (which takes precedence) or --trunk_int8 on `model`, or
+    nothing; `dataset` gives --full_int8's calibration batches."""
+    if getattr(args, "full_int8", False):
+        return apply_full_int8(args, model, calib_image_batches(dataset, args.calib_batches, args.batch_size),
+                               device)
+    if getattr(args, "trunk_int8", False):
+        return apply_trunk_int8(args, model)
+    return model
 
 
 def build_ssd(args, weights_path: Path, conv12_kernel: bool | None = None):

@@ -23,8 +23,10 @@ the copy overlap the next batches on the card. `--batches_per_dispatch K`
 runs K padded batches a call (each with its own batch statistics, as K calls
 would) and brings their matches back in one copy; the batches left over at
 the end run one at a time. `--d2h_half` copies the largest leaf, the match
-scores, as float16 (`correct` is already bool). Not ported yet: multi-process
-evaluation (ROADMAP Queue 1 G2); int8 serving waits for Queue 1 F.
+scores, as float16 (`correct` is already bool). `--trunk_int8` and
+`--full_int8` serve the model on its int8 paths (`cli.common.apply_int8`;
+the int8 kernel on the card). Not ported yet: multi-process evaluation
+(ROADMAP Queue 1 G2).
 """
 
 from __future__ import annotations
@@ -152,7 +154,6 @@ def main(argv=None):
     args = parse_args(argv)
     if args.batches_per_dispatch < 1:
         raise SystemExit(f"--batches_per_dispatch must be >= 1, got {args.batches_per_dispatch}")
-    common.check_int8(args)
     common.init_serving_distributed(args)
     common.serving_mesh(args)
     device = resolve_device(args.device)
@@ -168,6 +169,7 @@ def main(argv=None):
                         num_workers=args.num_workers)
     try:
         model, labelmap = common.build_ssd(args, out_dir / args.weights)
+        model = common.apply_int8(args, model, dataset, device)
         num_classes = len(labelmap)
         run = build_eval_pipeline(model, args.bn_mode == "batch", args.imsize, num_classes,
                                   args.max_detections, device=device, d2h_half=args.d2h_half)

@@ -23,8 +23,10 @@ as K calls), their rows in one copy; the batches left over at the end run one
 at a time. `--d2h_half` copies the packed rows as float16 (~5e-4 relative,
 ≲0.15 px at 300). `--export_pipeline PATH` writes the whole pipeline with its
 weights as `torch.export` programs for `--export_platforms` (serving.py) and
-exits. Not ported yet: multi-process inference (ROADMAP Queue 1 G2); int8
-serving waits for Queue 1 F.
+exits. `--trunk_int8` and `--full_int8` serve the model on its int8 paths
+(`cli.common.apply_int8`; the int8 kernel on the card), the export included:
+the exported program then holds the int8 op's calls. Not ported yet:
+multi-process inference (ROADMAP Queue 1 G2).
 """
 
 from __future__ import annotations
@@ -87,7 +89,6 @@ def main(argv=None) -> dict:
     args = parse_args(argv)
     if args.batches_per_dispatch < 1:
         raise SystemExit(f"--batches_per_dispatch must be >= 1, got {args.batches_per_dispatch}")
-    common.check_int8(args)
     common.init_serving_distributed(args)
     common.serving_mesh(args)
     out_dir = Path(args.result_dir) / "detection"
@@ -95,13 +96,8 @@ def main(argv=None) -> dict:
         return {"export": _export(args)}
     device = resolve_device(args.device)
     require_pil()
+    dataset = _dataset(args)
 
-    if args.records_dir:
-        dataset = RecordDataset(args.records_dir)
-    else:
-        dataset = PascalVOCDataset(
-            "detection", args.data_dirs or common.DEFAULT_TEST_DIRS, "test.txt", args.imsize
-        )
     loader = DataLoader(dataset, args.batch_size, max_gt=args.max_gt, drop_last=False,
                         num_workers=args.num_workers)
     paths, batch_s, render_s = [], [], []
@@ -110,6 +106,7 @@ def main(argv=None) -> dict:
     group: list = []
     try:
         model, labelmap = common.build_ssd(args, out_dir / args.weights)
+        model = common.apply_int8(args, model, dataset, device)
         run = build_detection_pipeline(model, args.bn_mode == "batch", args.imsize,
                                        max_detections=args.max_detections, device=device, d2h_half=args.d2h_half)
         palette = hls_palette(len(labelmap) + 1)
@@ -160,10 +157,22 @@ def main(argv=None) -> dict:
     return {"paths": paths, "batch_s": batch_s, "render_s": render_s}
 
 
+def _dataset(args):
+    if args.records_dir:
+        return RecordDataset(args.records_dir)
+    return PascalVOCDataset("detection", args.data_dirs or common.DEFAULT_TEST_DIRS, "test.txt", args.imsize)
+
+
 def _export(args) -> dict:
+    """The model, on its int8 path when a flag asks (--full_int8 calibrated
+    on --device over the run's dataset), as an exported pipeline."""
     from object_detection_torch2_tpu_torch.serving import export_detection_pipeline
 
     model, _ = common.build_ssd(args, Path(args.result_dir) / "detection" / args.weights)
+    if args.full_int8:
+        model = common.apply_int8(args, model, _dataset(args), resolve_device(args.device))
+    elif args.trunk_int8:
+        model = common.apply_trunk_int8(args, model)
     meta = export_detection_pipeline(
         model, args.export_pipeline, batch_size=args.batch_size, use_batch_stats=args.bn_mode == "batch",
         imsize=args.imsize, max_detections=args.max_detections,

@@ -46,10 +46,18 @@ tolerances the kernel is held to. The JAX CLI leaves its Pallas kernel off
 because on the TPU XLA's convolution wins. VGG16 has no kernel of its own: the
 JAX package runs it on XLA's convolutions.
 
+`--trunk_int8` (detection only, not with `--train_trunk`) runs blocks 2-5
+of the frozen trunk as int8 convolutions (models/quant.py; the int8 kernel
+on the card) with the scales of `<result_dir>/<purpose>/quant.json`: loaded
+when it is there and complete, else (absent or stale) calibrated over the
+first `--calib_batches` batches read by index from the training dataset with
+the train augment applied (`_quant_scales`), and written for the serving
+CLIs.
+
 The run is on the CUDA card unless `--device cpu` is given; without a card it
 raises. Not ported (they raise NotImplementedError naming their ROADMAP
-Queue 1 item): `--trunk_int8` (F), `--distributed` and `--num_devices`
-above 1 (G2). The JAX CLI's tqdm bar is a progress line here.
+Queue 1 item): `--distributed` and `--num_devices` above 1 (G2). The JAX
+CLI's tqdm bar is a progress line here.
 """
 
 from __future__ import annotations
@@ -129,11 +137,16 @@ def parse_args(argv=None):
     parser.add_argument("--debug_nans", action="store_true",
                         help="torch anomaly detection, and raise on a non-finite loss (slow)")
     parser.add_argument("--trunk_int8", action="store_true",
-                        help="int8 trunk; not ported yet (ROADMAP Queue 1 F)")
+                        help="run the frozen VGG trunk's blocks 2-5 as int8 convolutions (models/quant.py; the "
+                             "int8 kernel on the card). Activation scales come from "
+                             "<result_dir>/<purpose>/quant.json, calibrated over the first --calib_batches "
+                             "augmented batches when absent or stale. Detection purpose only; incompatible "
+                             "with --train_trunk")
     parser.add_argument("--calib_batches", type=int, default=8,
                         help="batches for int8 activation abs-max calibration")
     parser.add_argument("--calib_margin", type=float, default=1.25,
-                        help="headroom factor on calibrated abs-maxes")
+                        help="headroom factor on calibrated abs-maxes (every quantized input follows "
+                             "batch-statistics BN; the margin covers residual drift)")
     parser.add_argument("--device", type=str, default=None,
                         help="torch device; default the CUDA card (raises without one), 'cpu' for the CPU")
     args = parser.parse_args(argv)
@@ -179,6 +192,53 @@ def _aug_config(train_aug: str):
     return {"train": True, "none": False, "reduced_hue": {"hue": 0.05}}[train_aug]
 
 
+def _quant_scales(args, model, ds_train, device) -> dict:
+    """Int8 trunk activation scales: <result_dir>/<purpose>/quant.json when it
+    is there and complete, else abs-max calibration of `model` on `device`
+    over the first --calib_batches batches read by index from `ds_train` (on
+    the host, no DataLoader thread), written there for the serving CLIs. A
+    stale file (a layer without a positive amax) is recalibrated in place.
+
+    The calibration batches get the train step's augment (--train_aug, in the
+    model's dtype), its draws from a generator seeded with seed ^ 0xCA11B,
+    so the abs-maxes cover the distribution the int8 path quantizes; GT
+    boxes are zeros (they only ride through the flip)."""
+    from object_detection_torch2_tpu_torch.data.augment import augment_batch
+    from object_detection_torch2_tpu_torch.models import quant as quant_lib
+
+    quant_path = Path(args.result_dir) / args.purpose / "quant.json"
+    if quant_path.exists():
+        scales = json.loads(quant_path.read_text())
+        stale = quant_lib.missing_layers(scales)
+        if not stale:
+            print("quant scales loaded.")
+            return scales
+        print(f"quant.json is stale (no amax for {stale}) — recalibrating")
+
+    aug_cfg = _aug_config(args.train_aug)
+    if aug_cfg is not False:
+        aug_cfg = dict(aug_cfg if isinstance(aug_cfg, dict) else {})
+        aug_cfg.setdefault("dtype", model.dtype)
+    generator = torch.Generator().manual_seed(args.seed ^ 0xCA11B)
+
+    def batches():
+        for images in common.calib_image_batches(ds_train, args.calib_batches, args.batch_size):
+            if aug_cfg is False:
+                yield images
+                continue
+            images = torch.from_numpy(images).to(device)
+            gts = torch.zeros((images.shape[0], 1, 25), dtype=torch.float32, device=device)
+            yield augment_batch(generator, images, gts, **aug_cfg)[0]
+
+    scales = quant_lib.calibrate_trunk(model.to(device), batches(), margin=args.calib_margin)
+    quant_path.parent.mkdir(parents=True, exist_ok=True)
+    quant_lib.save_quant(quant_path, scales)
+    kind = "augmented " if aug_cfg is not False else ""
+    print(f"quant scales calibrated ({args.calib_batches} {kind}batches, "
+          f"margin {args.calib_margin}) -> {quant_path}")
+    return scales
+
+
 def _build_datasets(args):
     if args.records_dir:
         ds_train = RecordDataset(args.records_dir)
@@ -199,8 +259,10 @@ def _check_unported(args):
     if args.device_cache and (args.distributed or not args.records_dir):
         raise SystemExit("--device_cache requires --records_dir and is single-process "
                          "(incompatible with --distributed)")
-    if args.trunk_int8:
-        raise NotImplementedError("--trunk_int8 is not ported yet (ROADMAP Queue 1 F)")
+    if args.trunk_int8 and args.train_trunk:
+        raise SystemExit("--trunk_int8 requires a frozen trunk (drop --train_trunk)")
+    if args.trunk_int8 and args.purpose != "detection":
+        raise SystemExit("--trunk_int8 is for the detection purpose")
     if args.distributed:
         raise NotImplementedError("--distributed: multi-process training is not ported yet (ROADMAP Queue 1 G2)")
     if args.num_devices is not None and args.num_devices > 1:
@@ -236,15 +298,19 @@ def main(argv=None) -> dict:
             dl_val.close()
 
 
-def _build_trainer(args, device, weights_path: Path):
+def _build_trainer(args, device, weights_path: Path, ds_train):
     """(Trainer, is_trainable) of the purpose: the SSD with a frozen trunk
-    (or all of it with --train_trunk), or the VGG16 with its dead head
-    frozen."""
+    (or all of it with --train_trunk; blocks 2-5 int8 with --trunk_int8), or
+    the VGG16 with its dead head frozen."""
     if args.purpose == "detection":
         model, _ = common.build_ssd(args, weights_path, conv12_kernel=True)
+        quant = None
+        if args.trunk_int8:
+            quant = _quant_scales(args, model, ds_train, device)
+            model.trunk_int8 = True
         trainer = Trainer(model, default_boxes=default_boxes(feature_grids_for(args.imsize)),
                           use_batch_stats=args.bn_mode == "batch", augment=_aug_config(args.train_aug),
-                          seed=args.seed, device=device)
+                          seed=args.seed, quant=quant, device=device)
         # reference parity: the VGG trunk is frozen (src/model/ssd.py:31-32,
         # 160-179); --train_trunk unfreezes it
         return trainer, (lambda name: True) if args.train_trunk else None
@@ -263,7 +329,7 @@ def _build_trainer(args, device, weights_path: Path):
 def _train(args, device, dl_train, dl_val) -> dict:
     weights_path = Path(args.result_dir) / args.purpose / args.weights
     params_path = Path(args.result_dir) / args.purpose / args.params
-    trainer, is_trainable = _build_trainer(args, device, weights_path)
+    trainer, is_trainable = _build_trainer(args, device, weights_path, dl_train.dataset)
 
     # resume surface (reference: train.py:85-95; quirk Q7: fresh optimizer state)
     params = ckpt.load_params_json(params_path)

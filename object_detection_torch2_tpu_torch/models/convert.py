@@ -25,6 +25,11 @@
 - `adam_state_dict_from_optax`: an optax `ScaleByAdamState` (count, mu, nu as
   numpy trees of the JAX params layout) -> a `torch.optim.Adam` state_dict, so
   that both frameworks can start from the same mid-run optimizer state.
+- `quant_scales_from_jax_variables` / `jax_quant_collection`: the JAX
+  package's `variables["quant"]` collection ({amax_<layer>: float32 scalar})
+  <-> the port's scales {amax_<layer>: float} (`SSD.set_quant`,
+  `Trainer(quant=)`, quant.json), so both frameworks run with the same
+  activation scales.
 """
 
 from __future__ import annotations
@@ -323,3 +328,15 @@ def adam_state_dict_from_optax(count, mu: dict, nu: dict, names: list, param_gro
             "exp_avg_sq": from_jax_layout(nu[layer][leaf]),
         }
     return {"state": state, "param_groups": param_groups}
+
+
+def quant_scales_from_jax_variables(variables: dict) -> dict:
+    """The JAX package's `variables["quant"]` ({amax_<layer>: scalar}) -> the
+    port's scales {amax_<layer>: float}, each the float32 value as a float."""
+    return {k: float(np.float32(np.asarray(v))) for k, v in variables["quant"].items()}
+
+
+def jax_quant_collection(scales: dict) -> dict:
+    """The port's scales {amax_<layer>: float} -> the JAX package's "quant"
+    collection {amax_<layer>: numpy float32 scalar}, as its models take it."""
+    return {k: np.float32(v) for k, v in scales.items()}

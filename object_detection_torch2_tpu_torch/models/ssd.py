@@ -33,20 +33,48 @@ JAX package's default.
 `SSD.is_trainable(name)` is the frozen-trunk partition of the reference's
 `train_params()`: extras 6-11 (conv and BN) and the detector heads train.
 
+Int8 (models/quant.py; the JAX package's models/ssd.py:326-358, 382-441):
+- `trunk_int8=True` runs blocks 2-5 of the trunk as s8 x s8 -> s32 convs
+  (ops/int8_conv.py: the kernel csrc/int8_conv.cu on the card): the input
+  quantized with its layer's static scale, the weights per output channel
+  from the float weights on every forward, the dequantization and bias in
+  the kernel's epilogue; BN and ReLU stay float. conv_1_2 joins them with
+  `conv12_int8=True` (default False, as in the JAX package); otherwise it
+  keeps its float path (the conv12 kernel with `conv12_kernel=True`).
+- `full_int8=True` (serving only) quantizes the trunk, the extra layers and
+  the six heads.
+- `quant_calibrate=True` runs the float path and hands every quantized
+  layer's input to `quant_observer(layer, x)` (calibration and saturation
+  rates drive it).
+- The activation amaxes live in `quant_amax`, a float32 buffer of one value
+  per `quant.FULL_QUANT_LAYERS` entry that moves with the model but is not
+  in its state_dict (the weights files are unchanged); `set_quant` fills it.
+  `quant_reciprocal=True` quantizes activations with the reciprocal of the
+  scale, as the JAX package's Trainer does (`Trainer` sets it).
+The JAX package's `conv12_staggered_int8` is bit-identical to the plain int8
+conv by construction (its ssd.py:174-177), so it is not ported.
+
+`forward(..., up_to=layer)` returns the activation right after that layer
+('1_1'..'5_3', '6_1'..'11_2': after its ReLU, and after the block's pool when
+it is the block's last conv), NHWC in the model's dtype, instead of the head
+outputs.
+
 Not ported here: the TPU lane layouts of the same math (`paired_block1`,
-`conv12_stagger`, `conv12_pad_pairs`), the int8 paths and their calibration,
-and `up_to`.
+`conv12_stagger`, `conv12_pad_pairs`).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from object_detection_torch2_tpu_torch import true_float32
+from object_detection_torch2_tpu_torch.models import quant
 from object_detection_torch2_tpu_torch.models.bn import BatchNorm
 from object_detection_torch2_tpu_torch.ops.conv12 import conv12
+from object_detection_torch2_tpu_torch.ops.int8_conv import int8_conv, pack_weight
 
 # ImageNet normalization (reference: src/model/vgg16.py:19-20)
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
@@ -99,6 +127,8 @@ def _layer_specs():
 # (suffix, in_ch, out_ch, kernel, stride, pad, pool_after) for every
 # conv+BN+ReLU layer of the trunk and the extras, in forward order
 LAYER_SPECS = _layer_specs()
+# position of each quantizable layer's amax in SSD.quant_amax
+_QUANT_INDEX = {layer: i for i, layer in enumerate(quant.FULL_QUANT_LAYERS)}
 
 
 def normalize_image(x: torch.Tensor) -> torch.Tensor:
@@ -128,13 +158,21 @@ class SSD(nn.Module):
     """
 
     def __init__(self, num_classes: int = 21, dtype: torch.dtype = torch.float32, seed: int = 0,
-                 conv12_kernel: bool | None = None):
+                 conv12_kernel: bool | None = None, trunk_int8: bool = False, full_int8: bool = False,
+                 conv12_int8: bool = False, quant_calibrate: bool = False):
         super().__init__()
         if dtype not in DTYPES:
             raise ValueError(f"dtype must be one of {DTYPES}, got {dtype}")
         self.num_classes = num_classes
         self.dtype = dtype
         self.conv12_kernel = conv12_kernel
+        self.trunk_int8 = trunk_int8
+        self.full_int8 = full_int8
+        self.conv12_int8 = conv12_int8
+        self.quant_calibrate = quant_calibrate
+        self.quant_reciprocal = False
+        self.quant_observer = None
+        self.register_buffer("quant_amax", torch.zeros(len(quant.FULL_QUANT_LAYERS)), persistent=False)
         self.features = nn.ModuleDict()
         for suffix, cin, cout, k, stride, pad, _ in LAYER_SPECS:
             self.features[f"conv_{suffix}"] = nn.Conv2d(cin, cout, k, stride=stride, padding=pad)
@@ -168,6 +206,35 @@ class SSD(nn.Module):
                     return int(part[len(prefix):].split("_")[0]) >= 6
         return False
 
+    def set_quant(self, scales: dict) -> None:
+        """Hold the calibrated amaxes {amax_<layer>: float} (a quant.json's
+        contents) in `quant_amax` on the model's device, float32; a layer the
+        dict lacks gets 0 (`quant.check_calibrated` is the caller's check)."""
+        values = [np.float32(scales.get(f"amax_{layer}", 0.0)) for layer in quant.FULL_QUANT_LAYERS]
+        self.quant_amax.copy_(torch.tensor(np.array(values, np.float32)))
+
+    def _int8_layer(self, suffix: str) -> bool:
+        """Whether layer `suffix` (a LAYER_SPECS suffix or 'det_<tap>') runs int8."""
+        if suffix.startswith("det_") or int(suffix.split("_")[0]) >= 6:
+            return self.full_int8
+        if suffix == "1_2":
+            return (self.trunk_int8 or self.full_int8) and self.conv12_int8
+        return int(suffix.split("_")[0]) >= 2 and (self.trunk_int8 or self.full_int8)
+
+    def _observe(self, layer: str, x: torch.Tensor) -> None:
+        if self.quant_calibrate and self.quant_observer is not None and layer in _QUANT_INDEX:
+            self.quant_observer(layer, x)
+
+    def _conv_int8(self, layer: str, conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
+        """conv on the int8 path: quantize x with the layer's static scale,
+        the weights per output channel, s8 x s8 -> s32, then (acc * (sx *
+        sw)) in the model's dtype + bias, in the op's epilogue."""
+        sx = quant.act_scale(self.quant_amax[_QUANT_INDEX[layer]])
+        sw = quant.weight_scales(conv.weight)
+        w8 = pack_weight(quant.quantize_weight(conv.weight, sw))
+        x8 = quant.quantize_act(x, sx, reciprocal=self.quant_reciprocal).contiguous(memory_format=torch.channels_last)
+        return int8_conv(x8, w8, sx * sw, conv.bias.to(self.dtype), conv.stride[0], conv.padding[0], self.dtype)
+
     def _conv(self, conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
         return F.conv2d(x, conv.weight.to(self.dtype), conv.bias.to(self.dtype),
                         stride=conv.stride, padding=conv.padding)
@@ -179,29 +246,40 @@ class SSD(nn.Module):
         return conv12(x, conv.weight.to(self.dtype), conv.bias, out_dtype=self.dtype)
 
     def forward(self, x: torch.Tensor, use_batch_stats: bool = True,
-                batch_mask: torch.Tensor | None = None) -> torch.Tensor:
+                batch_mask: torch.Tensor | None = None, up_to: str | None = None) -> torch.Tensor:
         with true_float32():
-            return self._forward(x, use_batch_stats, batch_mask)
+            return self._forward(x, use_batch_stats, batch_mask, up_to)
 
-    def _forward(self, x, use_batch_stats, batch_mask):
+    def _forward(self, x, use_batch_stats, batch_mask, up_to):
         n = x.shape[0]
         taps = dict(DETECTOR_TAPS)
         # NHWC -> NCHW view with channels_last strides
         x = normalize_image(x).permute(0, 3, 1, 2).to(self.dtype)
         feature_maps = {}
         for suffix, _, _, _, _, _, pool in LAYER_SPECS:
-            conv = self._conv12 if suffix == "1_2" and self.conv12_kernel else self._conv
-            x = conv(self.features[f"conv_{suffix}"], x)
+            conv = self.features[f"conv_{suffix}"]
+            if self._int8_layer(suffix):
+                x = self._conv_int8(suffix, conv, x)
+            else:
+                self._observe(suffix, x)
+                x = (self._conv12 if suffix == "1_2" and self.conv12_kernel else self._conv)(conv, x)
             x = self.features[f"bn_{suffix}"](x, use_batch_stats, batch_mask, out_dtype=self.dtype)
             x = F.relu(x)
             if suffix in taps:
                 feature_maps[suffix] = x
             if pool is not None:
                 x = F.max_pool2d(x, 2, 2, padding=1 if pool == "M_P" else 0)
+            if suffix == up_to:
+                return x.permute(0, 2, 3, 1)
 
         outputs = []
         for suffix, _ in DETECTOR_TAPS:
-            y = self._conv(self.detectors[f"det_{suffix}"], feature_maps[suffix])
+            det, fm = self.detectors[f"det_{suffix}"], feature_maps[suffix]
+            if self._int8_layer(f"det_{suffix}"):
+                y = self._conv_int8(f"det_{suffix}", det, fm)
+            else:
+                self._observe(f"det_{suffix}", fm)
+                y = self._conv(det, fm)
             # (N, A*(C+4), H, W) -> (N, H*W*A, C+4): rows h-major, then w, then
             # anchor (reference: ssd.py:103)
             outputs.append(y.permute(0, 2, 3, 1).reshape(n, -1, self.num_classes + 4))

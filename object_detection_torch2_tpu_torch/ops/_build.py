@@ -8,9 +8,13 @@ interface, loaded with ctypes:
 
 A source's own flags are in `SOURCE_FLAGS`: the NMS sweep is built with
 `-fmad=false` so that it rounds as its plain version does; the two conv_1_2
-kernels are built with FMA contraction, as a convolution's sum should be.
+kernels are built with FMA contraction, as a convolution's sum should be; the
+int8 convolution sums in int32 and writes its float epilogue with explicit
+round-to-nearest intrinsics, which no flag changes.
 `tensor_core_instructions` counts the tensor-core instructions in a built
-library's machine code (cuobjdump -sass).
+library's machine code (cuobjdump -sass): HMMA (mma.sync on floating-point
+types), HGMMA (wgmma on them), IMMA (mma.sync on int8) and IGMMA (wgmma on
+int8).
 
 The output lands in `object_detection_torch2_tpu_torch/_build/`, in a
 directory keyed by a hash of that source, the shared headers and its flags, so
@@ -119,20 +123,20 @@ def load(name: str) -> ctypes.CDLL:
     return ctypes.CDLL(str(library_path(name)))
 
 
-TENSOR_CORE_OPCODES = ("HMMA", "HGMMA")
+TENSOR_CORE_OPCODES = ("HMMA", "HGMMA", "IMMA", "IGMMA")
 # an instruction of cuobjdump -sass: `/*0a40*/  @!P0 HMMA.16816.F32.BF16 R24, ...`,
 # its address, an optional predicate guard, then the opcode up to its first dot
 _SASS_OPCODE = re.compile(r"/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)")
 
 
 def count_tensor_core_opcodes(sass: str) -> dict[str, int]:
-    """{HMMA, HGMMA: instructions} in cuobjdump -sass text."""
+    """{HMMA, HGMMA, IMMA, IGMMA: instructions} in cuobjdump -sass text."""
     ops = _SASS_OPCODE.findall(sass)
     return {op: ops.count(op) for op in TENSOR_CORE_OPCODES}
 
 
 def tensor_core_instructions(name: str) -> dict[str, int]:
-    """{HMMA, HGMMA: count} in the machine code of csrc/<name>.cu's built library."""
+    """{HMMA, HGMMA, IMMA, IGMMA: count} in the machine code of csrc/<name>.cu's built library."""
     lib = library_path(name)
     if not lib.is_file():
         raise FileNotFoundError(f"csrc/{name}.cu is not built ({lib})")

@@ -1,4 +1,4 @@
-"""The package's two kernels as `torch.library` custom ops.
+"""The package's kernels as `torch.library` custom ops.
 
 `torch.export` traces through the dispatcher and cannot trace a ctypes call,
 so each kernel is registered as an op of the `odt` namespace, with one
@@ -9,12 +9,16 @@ implementation for each device and a fake one for tracing:
   the plain sweep (`ops.nms._blocked_keep_sorted`);
 - `torch.ops.odt.conv12(x, w, b, out_dtype)`: "cuda" runs the conv_1_2
   kernels (`ops.conv12_cuda.conv12_cuda`), "cpu" the plain version
-  (`ops.conv12.conv12_plain`); its gradient is `ops.conv12.conv12_backward`.
+  (`ops.conv12.conv12_plain`); its gradient is `ops.conv12.conv12_backward`;
+- `torch.ops.odt.int8_conv(x8, w8, scale, bias, stride, pad, out_dtype)`:
+  "cuda" runs the int8 convolution kernel (`ops.int8_conv_cuda.int8_conv_cuda`),
+  "cpu" the plain version (`ops.int8_conv.int8_conv_plain`); it has no
+  gradient (no autograd formula is registered: the int8 layers are frozen).
 
 The op dispatches on its tensors' device. That is no fallback: a CUDA tensor
 launches the kernel or raises, and only a CPU tensor takes the plain version.
-The kernels' wrappers still count their launches. `ops.nms_cuda.keep_sorted`
-and `ops.conv12.conv12` call these ops; an exported program holds them as
+The kernels' wrappers still count their launches. `ops.nms_cuda.keep_sorted`,
+`ops.conv12.conv12` and `ops.int8_conv.int8_conv` call these ops; an exported program holds them as
 calls of `torch.ops.odt.*`, so loading one needs this module imported and no
 model code.
 
@@ -27,7 +31,8 @@ from typing import Optional
 import torch
 
 from object_detection_torch2_tpu_torch.ops import conv12 as conv12_mod
-from object_detection_torch2_tpu_torch.ops import conv12_cuda, nms_cuda
+from object_detection_torch2_tpu_torch.ops import conv12_cuda, int8_conv_cuda, nms_cuda
+from object_detection_torch2_tpu_torch.ops.int8_conv import int8_conv_plain, output_size
 from object_detection_torch2_tpu_torch.ops.nms import _blocked_keep_sorted
 
 
@@ -64,3 +69,23 @@ def _conv12_fake(x, w, b, out_dtype):
 
 
 conv12.register_autograd(conv12_mod.conv12_backward, setup_context=conv12_mod.conv12_setup_context)
+
+
+@torch.library.custom_op("odt::int8_conv", mutates_args=(), device_types="cpu")
+def int8_conv(x8: torch.Tensor, w8: torch.Tensor, scale: Optional[torch.Tensor], bias: Optional[torch.Tensor],
+              stride: int, pad: int, out_dtype: Optional[torch.dtype]) -> torch.Tensor:
+    """s8 x s8 -> s32 convolution, raw (scale None) or dequantized to `out_dtype` + bias."""
+    return int8_conv_plain(x8, w8, scale, bias, stride, pad, out_dtype)
+
+
+@int8_conv.register_kernel("cuda")
+def _int8_conv_cuda(x8, w8, scale, bias, stride, pad, out_dtype):
+    return int8_conv_cuda.int8_conv_cuda(x8, w8, scale, bias, stride, pad, out_dtype)
+
+
+@int8_conv.register_fake
+def _int8_conv_fake(x8, w8, scale, bias, stride, pad, out_dtype):
+    ho, wo = output_size(x8.shape[2], x8.shape[3], w8.shape[1], w8.shape[2], stride, pad)
+    dtype = torch.int32 if scale is None else out_dtype or torch.float32
+    return torch.empty((x8.shape[0], w8.shape[0], ho, wo), dtype=dtype, device=x8.device,
+                       memory_format=torch.channels_last)

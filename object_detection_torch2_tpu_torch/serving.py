@@ -10,7 +10,7 @@ in the program, and writes:
 - `<path>.json`: the calling contract (shapes, platforms, knobs, bytes).
 
 `load_detection_pipeline(path, device=None)` gives back `(run, meta)`. It
-needs no model code: the programs call the package's two kernels as the
+needs no model code: the programs call the package's kernels as the
 custom ops `torch.ops.odt.*`, so loading imports only `ops/registry.py`. The
 artifact keeps the same (packed (N, K, 6), n_valid (N,)) contract as
 `infer.build_detection_pipeline`, so `infer.unpack_detections` reads its

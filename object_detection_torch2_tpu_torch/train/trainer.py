@@ -35,8 +35,19 @@ uses batch statistics AND keeps updating its running statistics (quirk Q9).
 float32 convolutions run in true float32 in the forward and the backward
 (`true_float32`), as the JAX package's `precision=HIGHEST` does.
 
-Not ported yet (they raise NotImplementedError; ROADMAP.md Queue 1): the
-int8 trunk (`quant`, item F) and data parallelism (`mesh`, item G2).
+Int8 trunk (`quant=`, models/quant.py): an `SSD(trunk_int8=True)` needs its
+calibrated scales {amax_<layer>: float}; they are checked
+(`quant.check_calibrated`, the JAX package's messages) and copied to the
+model's device once (`SSD.set_quant`), and the model quantizes activations
+with the reciprocal of each scale, as XLA compiles the JAX Trainer's
+closed-over constants (`SSD.quant_reciprocal`). `full_int8` is refused
+(serving only: it would quantize the trainable extras and heads), and so is a
+trainable quantized trunk layer (`init_state`). The trunk needs no gradient
+through the int8 convs: its parameters are frozen and its activations carry
+no autograd graph.
+
+Not ported yet (it raises NotImplementedError; ROADMAP.md Queue 1): data
+parallelism (`mesh`, item G2).
 """
 
 from __future__ import annotations
@@ -68,6 +79,16 @@ def dropout_generator(seed: int, step: int, device) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(_step_seed(seed, 0xD40F, step))
 
 
+def _trunk_layer(name: str) -> bool:
+    """Whether parameter `name` (`features.conv_3_1.weight`) is of a trunk
+    layer (blocks 1-5)."""
+    part = name.split(".")[1] if "." in name else name
+    for prefix in ("conv_", "bn_"):
+        if part.startswith(prefix):
+            return int(part[len(prefix):].split("_")[0]) <= 5
+    return False
+
+
 class Trainer:
     """Train and eval steps for one SSD and its anchor table.
 
@@ -88,12 +109,22 @@ class Trainer:
             raise ValueError(f"unknown loss_kind {loss_kind!r}")
         if mesh is not None:
             raise NotImplementedError("data parallelism is not ported yet (ROADMAP.md Queue 1 item G2)")
-        if quant is not None:
-            raise NotImplementedError("the int8 trunk is not ported yet (ROADMAP.md Queue 1 item F)")
         if loss_kind == "multibox" and default_boxes is None:
             raise ValueError("multibox loss requires default_boxes")
+        if getattr(model, "full_int8", False):
+            # full_int8 quantizes the extras and heads, the TRAINABLE
+            # parameters; round and clip would cut their gradients
+            raise ValueError("full_int8 is a serving-only path; train with trunk_int8")
+        self.quant = None
+        if getattr(model, "trunk_int8", False):
+            from object_detection_torch2_tpu_torch.models.quant import check_calibrated
+
+            self.quant = dict(check_calibrated(quant))
         self.device = resolve_device(device)
         self.model = model.to(self.device)
+        if self.quant is not None:
+            self.model.set_quant(self.quant)
+            self.model.quant_reciprocal = True
         self.loss_kind = loss_kind
         self.ce_parity_sign = ce_parity_sign
         self.default_boxes = (None if default_boxes is None else
@@ -109,6 +140,15 @@ class Trainer:
         the trainable ones, e.g. `lambda ps: adam_torch(ps, schedule, wd)`."""
         if state_dict is not None:
             self.model.load_state_dict(state_dict)
+        if is_trainable is None:
+            is_trainable = getattr(type(self.model), "is_trainable", lambda name: True)
+        if getattr(self.model, "trunk_int8", False):
+            # the int8 trunk is inference-only math: a trainable trunk
+            # parameter would get no gradient through round and clip
+            quantized = sorted({name.split(".")[1] for name, _ in self.model.named_parameters()
+                                if is_trainable(name) and _trunk_layer(name)})
+            if quantized:
+                raise ValueError(f"trunk_int8 requires a frozen trunk; trainable: {quantized}")
         return TrainState.create(self.model, make_optimizer, is_trainable)
 
     def _inputs(self, images, targets, generator=None):

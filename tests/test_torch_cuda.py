@@ -480,3 +480,96 @@ def test_device_cache_on_the_card(card, tmp_path):
         assert ib.device.type == "cuda"
         np.testing.assert_array_equal(ia, ib.cpu().numpy())
         np.testing.assert_array_equal(ga, gb.cpu().numpy())
+
+
+# ------------------------------------------------------------ int8 conv
+
+# (n, cin, h, w, cout, kernel, stride, pad): each kind of quantized layer, at
+# small sizes, with ragged M and Cout
+INT8_CASES = [
+    (3, 64, 19, 23, 128, 3, 1, 1),
+    (2, 128, 10, 10, 100, 3, 1, 1),
+    (2, 256, 5, 7, 150, 3, 1, 1),
+    (3, 1024, 19, 19, 256, 1, 1, 0),
+    (2, 256, 19, 19, 512, 3, 2, 1),
+    (5, 128, 5, 5, 256, 3, 1, 0),
+    (4, 128, 3, 3, 256, 3, 1, 0),
+    (1, 32, 1, 1, 8, 1, 1, 0),
+]
+
+
+def _int8_case(rng, n, cin, h, w, cout, k, device):
+    x8 = torch.from_numpy(rng.integers(-127, 128, (n, h, w, cin), dtype=np.int8)).to(device).permute(0, 3, 1, 2)
+    w8 = torch.from_numpy(rng.integers(-127, 128, (cout, k, k, cin), dtype=np.int8)).to(device)
+    scale = torch.from_numpy((rng.uniform(0.5, 2.0, cout) * 1e-4).astype(np.float32)).to(device)
+    bias = torch.from_numpy(rng.normal(0, 0.5, cout).astype(np.float32)).to(device)
+    return x8, w8, scale, bias
+
+
+@pytest.mark.parametrize("case", INT8_CASES)
+def test_int8_conv_kernel_equals_plain(card, case):
+    """The raw int32 sums and both epilogues bit-equal to int8_conv_plain on
+    the card, one launch each, at full-scale int8 operands."""
+    from object_detection_torch2_tpu_torch.ops import int8_conv_cuda
+    from object_detection_torch2_tpu_torch.ops.int8_conv import int8_conv_plain
+
+    n, cin, h, w, cout, k, stride, pad = case
+    x8, w8, scale, bias = _int8_case(np.random.default_rng(sum(case)), n, cin, h, w, cout, k, card)
+    for sc, b, dtype in ((None, None, None), (scale, bias, torch.float32), (scale, bias.bfloat16(), torch.bfloat16),
+                         (scale, None, torch.bfloat16)):
+        before = int8_conv_cuda.kernel_launches
+        got = int8_conv_cuda.int8_conv_cuda(x8, w8, sc, b, stride, pad, dtype)
+        torch.cuda.synchronize()
+        assert int8_conv_cuda.kernel_launches == before + 1
+        want = int8_conv_plain(x8, w8, sc, b, stride, pad, dtype)
+        assert got.dtype == want.dtype and got.shape == want.shape
+        assert got.is_contiguous(memory_format=torch.channels_last)
+        assert torch.equal(got, want), (case, dtype, float((got.double() - want.double()).abs().max()))
+
+
+def test_int8_conv_wrapper_refusals(card):
+    from object_detection_torch2_tpu_torch.ops import int8_conv_cuda
+
+    x8, w8, scale, bias = _int8_case(np.random.default_rng(0), 2, 64, 8, 8, 16, 3, card)
+    with pytest.raises(ValueError, match="multiple of 32"):
+        int8_conv_cuda.int8_conv_cuda(x8[:, :48].contiguous(memory_format=torch.channels_last),
+                                      w8[..., :48].contiguous())
+    with pytest.raises(ValueError, match="channels_last"):
+        int8_conv_cuda.int8_conv_cuda(x8.contiguous(), w8)
+    with pytest.raises(ValueError, match="bias"):
+        int8_conv_cuda.int8_conv_cuda(x8, w8, scale, bias.bfloat16(), 1, 1, torch.float32)
+    with pytest.raises(ValueError, match="CUDA device"):
+        int8_conv_cuda.int8_conv_cuda(x8.cpu(), w8)
+    with pytest.raises(TypeError, match="int8"):
+        int8_conv_cuda.int8_conv_cuda(x8.float(), w8)
+
+
+def test_int8_library_has_tensor_core_instructions(card):
+    counts = _build.tensor_core_instructions("int8_conv")
+    assert counts["IMMA"] + counts["IGMMA"] > 0, counts
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_int8_ssd_on_the_card_equals_the_plain_conv(card, dtype, monkeypatch):
+    """SSD(full_int8) at 264 on the card: its calibration, 27 int8 launches a
+    forward, and the output identical to the same forward with the plain
+    int8 conv in place of the kernel."""
+    from object_detection_torch2_tpu_torch.models import quant
+    from object_detection_torch2_tpu_torch.models import ssd as ssd_mod
+    from object_detection_torch2_tpu_torch.ops import int8_conv_cuda
+    from object_detection_torch2_tpu_torch.ops.int8_conv import int8_conv_plain
+
+    model = SSD(num_classes=21, dtype=dtype, seed=0).to(card)
+    x = torch.from_numpy(np.random.default_rng(7).random((2, 264, 264, 3)).astype(np.float32)).to(card)
+    qd = quant.calibrate_full(model, [x])
+    model.set_quant(qd)
+    model.full_int8 = True
+    before = int8_conv_cuda.kernel_launches
+    with torch.no_grad():
+        got = model(x)
+    torch.cuda.synchronize()
+    assert int8_conv_cuda.kernel_launches == before + 27
+    monkeypatch.setattr(ssd_mod, "int8_conv", int8_conv_plain)
+    with torch.no_grad():
+        want = model(x)
+    assert torch.equal(got, want)

@@ -73,11 +73,12 @@ def test_save_detections_names_by_index(tmp_path):
     assert jax_render.save_detections(tmp_path / "j", 7, img).name == "000007.png"
 
 
-def _expected_pngs(images_u8, d2h_half=False):
-    """The port's pipeline and render of the CLI's batches (the seeded SSD
-    build_ssd makes without a weights file, batch statistics, padding as the
-    CLI pads)."""
-    run = build_detection_pipeline(SSD(num_classes=21, seed=0), True, IMSIZE, device="cpu", d2h_half=d2h_half)
+def _expected_pngs(images_u8, d2h_half=False, model=None):
+    """The port's pipeline and render of the CLI's batches (by default the
+    seeded SSD build_ssd makes without a weights file; batch statistics,
+    padding as the CLI pads)."""
+    model = SSD(num_classes=21, seed=0) if model is None else model
+    run = build_detection_pipeline(model, True, IMSIZE, device="cpu", d2h_half=d2h_half)
     labelmap = LabelMap("PascalVOC")
     out = []
     for start in range(0, len(images_u8), BATCH):
@@ -130,12 +131,33 @@ def test_cli_needs_pil(tmp_path, monkeypatch):
         inference.main(CLI_ARGS + ["--data_dirs", str(FIXTURE), "--result_dir", str(tmp_path)])
 
 
-@pytest.mark.parametrize("flags,item", [(["--distributed"], "G"), (["--num_devices", "2"], "G"),
-                                        (["--trunk_int8"], "F"),
-                                        (["--full_int8"], "F")])
+@pytest.mark.parametrize("flags,item", [(["--distributed"], "G"), (["--num_devices", "2"], "G")])
 def test_cli_unported_flags_raise(tmp_path, flags, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 {item}"):
         inference.main(CLI_ARGS + ["--data_dirs", str(FIXTURE), "--result_dir", str(tmp_path)] + flags)
+
+
+@pytest.mark.parametrize("flag", ["--trunk_int8", "--full_int8"])
+def test_cli_int8_flags_render_the_int8_model(tmp_path, records, flag):
+    """--trunk_int8 (scales from quant.json) and --full_int8 (calibrated
+    over the run's first batches, written to quant_full.json): each PNG
+    pixel-equal to the render of the seeded SSD on that int8 path with those
+    scales."""
+    from object_detection_torch2_tpu_torch.models import quant
+
+    name = "quant.json" if flag == "--trunk_int8" else "quant_full.json"
+    if flag == "--trunk_int8":
+        (tmp_path / "detection").mkdir(parents=True)
+        quant.save_quant(tmp_path / "detection" / name,
+                         {f"amax_{layer}": float(v) for layer, v in
+                          zip(quant.QUANT_LAYERS, np.linspace(2.0, 6.0, len(quant.QUANT_LAYERS)))})
+    out = inference.main(CLI_ARGS + ["--records_dir", str(records), "--result_dir", str(tmp_path), flag])
+    model = SSD(num_classes=21, seed=0, trunk_int8=flag == "--trunk_int8", full_int8=flag == "--full_int8")
+    model.set_quant(quant.load_quant(tmp_path / "detection" / name))
+    want = _expected_pngs(np.asarray(RecordDataset(records).images), model=model)
+    assert len(out["paths"]) == len(want) == 4
+    for path, w in zip(out["paths"], want):
+        np.testing.assert_array_equal(np.asarray(Image.open(path).convert("RGB")), w)
 
 
 def test_cli_without_device_needs_a_card(tmp_path):

@@ -193,17 +193,19 @@ def test_kernel_wrapper_refuses_cpu_tensors():
 
 def test_build_flags_and_missing_nvcc(monkeypatch, tmp_path):
     """The NMS kernel is built for sm_90a without FMA contraction or fast
-    math, both conv_1_2 kernels with FMA contraction; each source has its own
-    build directory, keyed by its flags; and a machine without nvcc gets an
-    error that says so."""
+    math, both conv_1_2 kernels and the int8 conv (whose float epilogue uses
+    explicit round-to-nearest intrinsics) with FMA contraction; each source
+    has its own build directory, keyed by its flags; and a machine without
+    nvcc gets an error that says so."""
     srcs = {s.name: s for s in _build.sources()}
-    assert sorted(srcs) == ["conv12.cu", "conv12_bf16.cu", "nms_keep_sorted.cu"]
+    assert sorted(srcs) == ["conv12.cu", "conv12_bf16.cu", "int8_conv.cu", "nms_keep_sorted.cu"]
     nms_cmd = _build.nvcc_command("nvcc", srcs["nms_keep_sorted.cu"], tmp_path / "lib.so")
-    conv_cmds = [_build.nvcc_command("nvcc", srcs[f], tmp_path / "lib.so") for f in ("conv12.cu", "conv12_bf16.cu")]
+    conv_cmds = [_build.nvcc_command("nvcc", srcs[f], tmp_path / "lib.so")
+                 for f in ("conv12.cu", "conv12_bf16.cu", "int8_conv.cu")]
     for cmd in (nms_cmd, *conv_cmds):
         assert "arch=compute_90a,code=sm_90a" in cmd and "--use_fast_math" not in cmd
     assert "-fmad=false" in nms_cmd and all("-fmad=false" not in cmd for cmd in conv_cmds)
-    assert len({_build.build_dir(s.stem) for s in srcs.values()}) == 3
+    assert len({_build.build_dir(s.stem) for s in srcs.values()}) == 4
     before = _build.build_dir("conv12")
     monkeypatch.setitem(_build.SOURCE_FLAGS, "conv12", ("-DEXTRA",))
     assert _build.build_dir("conv12") != before
@@ -229,10 +231,11 @@ def test_tensor_core_opcode_count():
         /*0a60*/              @UP1 HGMMA.64x64x16.F32.BF16 R24, gdesc[UR8], R24, gsb0 ;
         /*0a70*/                   LDSM.16.M88.4 R4, [R2] ;
         /*0a80*/                   FMNMX.NAN R27, R15, R8, !PT ;
+        /*0a90*/                   IMMA.16832.S8.S8 R40, R12.ROW, R16.COL, R40 ;
     .L_x_12:
 """
-    assert _build.count_tensor_core_opcodes(sass) == {"HMMA": 1, "HGMMA": 2}
-    assert _build.count_tensor_core_opcodes("") == {"HMMA": 0, "HGMMA": 0}
+    assert _build.count_tensor_core_opcodes(sass) == {"HMMA": 1, "HGMMA": 2, "IMMA": 1, "IGMMA": 0}
+    assert _build.count_tensor_core_opcodes("") == {"HMMA": 0, "HGMMA": 0, "IMMA": 0, "IGMMA": 0}
 
 
 def _kernel_model_keep_sorted(sorted_boxes, sorted_valid, thresh, tile=64):

@@ -314,9 +314,11 @@ def test_trainer_refusals():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             Trainer(model, default_boxes=df)
-    for kwargs in ({"mesh": object()}, {"quant": {}}):
-        with pytest.raises(NotImplementedError):
-            Trainer(model, default_boxes=df, device="cpu", **kwargs)
+    with pytest.raises(NotImplementedError):
+        Trainer(model, default_boxes=df, device="cpu", mesh=object())
+    # an int8 trunk needs calibrated scales: the JAX package's check_calibrated
+    with pytest.raises(ValueError, match="calibrated activation scales"):
+        Trainer(SSD(trunk_int8=True), default_boxes=df, device="cpu", quant={})
     with pytest.raises(ValueError, match="default_boxes"):
         Trainer(model, device="cpu")
     with pytest.raises(ValueError, match="loss_kind"):

@@ -390,11 +390,19 @@ def test_orbax_dir_sets_cudnn_deterministic_for_the_run(tmp_path, monkeypatch):
 # ---------------------------------------------------------------- refusals
 
 
-@pytest.mark.parametrize("flags,item", [(["--trunk_int8"], "F"), (["--distributed"], "G"),
-                                        (["--num_devices", "2"], "G")])
+@pytest.mark.parametrize("flags,item", [(["--distributed"], "G"), (["--num_devices", "2"], "G")])
 def test_unported_flags_raise(tmp_path, flags, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 {item}"):
         _run(tmp_path, *flags, orbax=False)
+
+
+@pytest.mark.parametrize("flags", [["--train_trunk"], ["--purpose", "classification"]])
+def test_trunk_int8_needs_the_frozen_detection_trunk(tmp_path, flags):
+    """--trunk_int8 runs the frozen detection trunk as int8: with
+    --train_trunk it exits with the JAX CLI's text, and the classification
+    purpose (no frozen trunk) refuses it too."""
+    with pytest.raises(SystemExit, match="frozen trunk|detection purpose"):
+        _run(tmp_path, "--trunk_int8", *flags, orbax=False)
 
 
 def test_without_device_needs_a_card(tmp_path):
