@@ -11,8 +11,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    nvcc per source, all started together, with nvcc's register, spill and
    shared-memory report and each library's count of tensor-core
    instructions (HMMA, HGMMA, IMMA, IGMMA) in cuobjdump -sass; the bfloat16
-   conv_1_2 library must have some, and the int8 conv library some IMMA or
-   IGMMA;
+   conv_1_2 library must have some, and the int8 conv library (the wgmma
+   kernel) some IGMMA;
 3. reference: the port's SSD forward on the card against the reference
    forward golden (tests/goldens/ssd_forward_pinned.npz) at its pinned
    tolerances, in float32 (which also proves cuDNN's TF32 is off) and bfloat16;
@@ -105,25 +105,32 @@ Phases (any failure raises and exits non-zero; nothing is caught):
 15. device cache: the training CLI with `--device_cache` against streaming
    (bfloat16, 2 epochs, --orbax_dir): losses and weights file bit-equal; H2D
    bytes a step and img/s;
-16. int8: the int8 conv kernel (csrc/int8_conv.cu) against `int8_conv_plain`
-   on the card at every quantizable layer of SSD300 at batch 32, 300x300
-   (conv_1_2, blocks 2-5, extras 6-11, the six heads) and at a ragged shape,
-   from seeded numpy operands: the raw int32 sums and the float32 and
-   bfloat16 epilogues bit-equal; per layer the kernel's ms (bfloat16
-   epilogue) beside its bound, cuDNN's bfloat16 conv and torch._int_mm on
-   the im2col'd operands (the GEMM alone). Then, each with its int8 launch
-   count reset just before and read just after: `Trainer(quant=)` at batch
-   32, G = 64, both dtypes (11 int8 launches and the dtype's conv12 launch a
-   forward, trunk bit-unchanged, ms per step against the float step in
-   turns); `cli.train --trunk_int8` in bfloat16, 2 epochs (quant.json with 12
-   layers); `cli.evaluate --trunk_int8` and `--full_int8` in bfloat16 over 70
-   records with ground truth planted on the int8 Predictor's own top-3
-   detections (parity mAP 1.0, 3 NMS launches, 11 or 27 int8 launches a
-   batch; the full run writes quant_full.json equal to the calibration and a
-   second run loads it with the same APs; batch 0's matches through the plain
-   int8 conv and plain sweep identical); `cli.inference --export_pipeline
-   --trunk_int8` for cuda (11 int8 op calls in the graph, the live int8
-   pipeline's rows); accuracy against float with random weights, float32:
+16. int8: the int8 conv kernel (csrc/int8_conv.cu, wgmma) against
+   `int8_conv_plain` on the card at every quantizable layer of SSD300 at
+   batch 32, 300x300 (conv_1_2, blocks 2-5, extras 6-11, the six heads), at
+   a ragged shape and at two K-tail / ragged-N shapes (Cin 32 on a 1x1 map,
+   Cin 64 with Cout 150), from seeded numpy operands: the raw int32 sums and
+   the float32 and bfloat16 epilogues bit-equal; per layer the kernel's ms
+   (bfloat16 epilogue) beside its bound, cuDNN's bfloat16 conv and
+   torch._int_mm on the im2col'd operands (the GEMM alone). The activation
+   quantize kernel (csrc/quantize_act.cu) against `quant.quantize_act` at
+   the input of each of the 27 layers, bfloat16 and float32, true division
+   and reciprocal, on exact ties, saturating values and -0.0: bit-equal; its
+   ms beside its bytes bound and the plain chain's. Then, each with both
+   kernels' launch counts reset just before and read just after:
+   `Trainer(quant=)` at batch 32, G = 64, both dtypes (11 int8 conv, 11
+   quantize and the dtype's conv12 launch a forward, trunk bit-unchanged, ms
+   per step against the float step in turns); `cli.train --trunk_int8` in
+   bfloat16, 2 epochs (quant.json with 12 layers); `cli.evaluate
+   --trunk_int8` and `--full_int8` in bfloat16 over 70 records with ground
+   truth planted on the int8 Predictor's own top-3 detections (parity mAP
+   1.0, 3 NMS launches, 11 or 27 launches of each int8 kernel a batch; the
+   full run writes quant_full.json equal to the calibration and a second run
+   loads it with the same APs; batch 0's matches through the plain int8 conv
+   and plain sweep identical); `cli.inference --export_pipeline
+   --trunk_int8` for cuda (11 int8_conv and 11 quantize_act op calls in the
+   graph, the live int8 pipeline's rows); accuracy against float with
+   random weights, float32:
    the JAX package's thresholds at its tests' sizes (trunk at 5_3, 64x64:
    cosine > 0.97; full int8, 264x264: > 0.95), and at 300x300 both above
    0.95;
@@ -1513,6 +1520,9 @@ def phase_serving_plumbing(card: str) -> dict:
 # dense int8 on the tensor cores
 PEAK_INT8_OPS_PER_S = 1979e12
 INT8_RAGGED = (3, 128, 37, 50, 100, 3, 1, 1)  # odd N, Ho != Wo, a head's Cout
+# the K tail and the ragged N together (K = 288 and 576 leave a part-filled
+# last 128-byte stage; Cout 100 and 150 part-fill the last N tile)
+INT8_TAIL_CASES = (("cin32_1x1", (5, 32, 1, 1, 100, 3, 1, 1)), ("cin64_cout150", (3, 64, 38, 50, 150, 3, 1, 1)))
 
 
 def int8_layer_shapes() -> list:
@@ -1634,7 +1644,8 @@ def int8_layer_table(card: str, timed: bool = True) -> dict:
 
     rows = [compare_int8(shape, i, timed) for i, shape in enumerate(int8_layer_shapes())]
     ragged = compare_int8(("ragged",) + INT8_RAGGED, 99, timed=False)
-    res = {"layers": rows, "ragged": ragged}
+    tails = [compare_int8((name,) + shape, 100 + i, timed=False) for i, (name, shape) in enumerate(INT8_TAIL_CASES)]
+    res = {"layers": rows, "ragged": ragged, "tails": tails}
     if timed:
         for key, names in (("trunk", QUANT_LAYERS[1:]), ("full", FULL_QUANT_LAYERS[1:])):
             sel = [r for r in rows if r["layer"] in names]
@@ -1651,15 +1662,91 @@ def int8_layer_table(card: str, timed: bool = True) -> dict:
     return res
 
 
+def quantize_case(shape, dtype, pow2: bool, seed: int):
+    """A seeded conv input (N, C, H, W) channels_last in `dtype` on the card
+    and its scale: a third exact ties (k + 0.5) * sx (exact at the
+    power-of-two sx; at the calibrated-like one, rounded to the dtype), the
+    rest uniform over +-200 sx (beyond +-127 sx saturates), -0.0 at a
+    thousand places."""
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    sx = 2.0 ** -5 if pow2 else float(np.float32(4.0 / 127 * np.random.default_rng(seed).uniform(0.5, 1.5)))
+    n = int(np.prod(shape))
+    x = (torch.rand(n, generator=g, device=DEVICE) * 400 - 200) * sx
+    ties = torch.randint(-140, 140, (n // 3,), generator=g, device=DEVICE).float()
+    x[:n // 3] = (ties + 0.5) * sx
+    x[torch.randint(0, n, (1000,), generator=g, device=DEVICE)] = -0.0
+    x = x.reshape(shape[0], shape[2], shape[3], shape[1]).permute(0, 3, 1, 2).to(dtype)
+    return x, torch.tensor(sx, dtype=torch.float32, device=DEVICE)
+
+
+def quantize_bound(n_elements: int, dtype) -> dict:
+    """Each element read once (2 or 4 bytes) and written once (1 byte) at HBM's rate."""
+    bytes_moved = n_elements * (torch.finfo(dtype).bits // 8 + 1)
+    return {"bound_ms": bytes_moved / PEAK_BYTES_PER_S * 1e3, "bound_by": "bytes", "bytes": bytes_moved}
+
+
+def quantize_table(card: str) -> dict:
+    """The activation quantize kernel (csrc/quantize_act.cu) against the
+    plain quant.quantize_act on the card at the input of each of the 27
+    --full_int8 layers of SSD300 at batch 32, 300x300, in bfloat16 and
+    float32, in both division contexts (true division; the reciprocal),
+    at a power-of-two and a calibrated-like scale: bit-equal. Timed
+    (true division, each dtype): kernel, plain chain, bound per layer; sums
+    over blocks 2-5 and the 27 layers."""
+    from object_detection_torch2_tpu_torch.models import quant
+    from object_detection_torch2_tpu_torch.models.quant import FULL_QUANT_LAYERS, QUANT_LAYERS
+    from object_detection_torch2_tpu_torch.ops import quantize_act_cuda
+
+    rows = []
+    for i, (name, n, cin, h, w, *_) in enumerate(int8_layer_shapes()):
+        if name not in FULL_QUANT_LAYERS[1:]:
+            continue
+        r = {"layer": name, "shape": [n, cin, h, w]}
+        for dtype in (torch.bfloat16, torch.float32):
+            dname = str(dtype).replace("torch.", "")
+            for pow2 in (True, False):
+                x, sx = quantize_case((n, cin, h, w), dtype, pow2, 1000 * i + 2 * pow2 + (dtype == torch.float32))
+                for reciprocal in (False, True):
+                    got = quantize_act_cuda.quantize_act_cuda(x, sx, reciprocal)
+                    want = quant.quantize_act(x, sx, reciprocal)
+                    torch.cuda.synchronize()
+                    if not (got.is_contiguous(memory_format=torch.channels_last) and torch.equal(got, want)):
+                        raise AssertionError(f"quantize kernel differs from quant.quantize_act at {name} {r['shape']} "
+                                             f"{dname} reciprocal={reciprocal} pow2={pow2}: "
+                                             f"{int((got != want).sum())} elements")
+            r[f"{dname}_kernel_ms"] = time_ms(lambda: quantize_act_cuda.quantize_act_cuda(x, sx, False), reps=10)
+            r[f"{dname}_plain_ms"] = time_ms(lambda: quant.quantize_act(x, sx, False), reps=5)
+            r[f"{dname}_bound_ms"] = quantize_bound(x.numel(), dtype)["bound_ms"]
+            del x
+        r["bit_equal"] = True
+        r.update(quantize_bound(n * cin * h * w, torch.bfloat16))
+        rows.append(r)
+    torch.cuda.empty_cache()
+    res = {"layers": rows}
+    for key, names in (("trunk", QUANT_LAYERS[1:]), ("full", FULL_QUANT_LAYERS[1:])):
+        sel = [r for r in rows if r["layer"] in names]
+        res[key] = {f: sum(r[f] for r in sel) for f in ("bfloat16_kernel_ms", "bfloat16_plain_ms", "bfloat16_bound_ms",
+                                                        "float32_kernel_ms", "float32_plain_ms", "float32_bound_ms",
+                                                        "bytes")}
+        res[key]["layers"] = len(sel)
+    for r in rows:
+        print(f"  quantize {r['layer']:>8} {r['shape']}: bfloat16 kernel {r['bfloat16_kernel_ms']:.4f} ms, bound "
+              f"{r['bfloat16_bound_ms']:.4f} (bytes), plain {r['bfloat16_plain_ms']:.4f}; float32 kernel "
+              f"{r['float32_kernel_ms']:.4f}, bound {r['float32_bound_ms']:.4f}, plain {r['float32_plain_ms']:.4f} "
+              f"({card})")
+    return res
+
+
 def int8_launches(fn) -> tuple:
-    """(fn's result, the int8 kernel's launches during it): the count is set
-    to 0 just before and read just after."""
-    from object_detection_torch2_tpu_torch.ops import int8_conv_cuda
+    """(fn's result, the int8 conv kernel's launches during it, the quantize
+    kernel's): both counts are set to 0 just before and read just after."""
+    from object_detection_torch2_tpu_torch.ops import int8_conv_cuda, quantize_act_cuda
 
     int8_conv_cuda.kernel_launches = 0
+    quantize_act_cuda.kernel_launches = 0
     out = fn()
     torch.cuda.synchronize()
-    return out, int8_conv_cuda.kernel_launches
+    return out, int8_conv_cuda.kernel_launches, quantize_act_cuda.kernel_launches
 
 
 def cosine(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -1669,9 +1756,10 @@ def cosine(a: torch.Tensor, b: torch.Tensor) -> float:
 
 def int8_trainer_check(card: str) -> dict:
     """Trainer(quant=) at batch 32, G = 64 with the conv12 kernel, in both
-    dtypes: 11 int8 launches and one conv12 launch of the dtype's kernel a
-    forward, the trunk bit-unchanged, finite losses, ms per step against the
-    float trainer's in turns (float, int8, int8, float)."""
+    dtypes: 11 int8 conv launches, 11 quantize launches and one conv12 launch
+    of the dtype's kernel a forward, the trunk bit-unchanged, finite losses,
+    ms per step against the float trainer's in turns (float, int8, int8,
+    float)."""
     from object_detection_torch2_tpu_torch.core.anchors import default_boxes, feature_grids_for
     from object_detection_torch2_tpu_torch.models.quant import calibrate_trunk
     from object_detection_torch2_tpu_torch.models.ssd import SSD
@@ -1697,11 +1785,12 @@ def int8_trainer_check(card: str) -> dict:
         tr, st = trainers["int8"]
         frozen0 = {k: v.clone() for k, v in st.frozen.items()}
         conv12_cuda.kernel_launches.update(dict.fromkeys(conv12_cuda.kernel_launches, 0))
-        losses, launches = int8_launches(lambda: [float(tr.train_step(st, images[i], targets[i])) for i in range(3)])
+        losses, launches, quant_launches = int8_launches(
+            lambda: [float(tr.train_step(st, images[i], targets[i])) for i in range(3)])
         conv12_launches = conv12_cuda.kernel_launches[conv12_cuda.KERNEL_OF[dtype]]
-        if launches != 3 * 11 or conv12_launches != 3:
-            raise AssertionError(f"int8 Trainer {name}: {launches} int8 and {conv12_launches} conv12 launches in 3 "
-                                 f"steps, not 33 and 3")
+        if launches != 3 * 11 or quant_launches != 3 * 11 or conv12_launches != 3:
+            raise AssertionError(f"int8 Trainer {name}: {launches} int8 conv, {quant_launches} quantize and "
+                                 f"{conv12_launches} conv12 launches in 3 steps, not 33, 33 and 3")
         if not np.isfinite(losses).all():
             raise AssertionError(f"int8 Trainer {name}: non-finite losses {losses}")
         for key, p in st.frozen.items():
@@ -1718,9 +1807,11 @@ def int8_trainer_check(card: str) -> dict:
                 e1.synchronize()
                 times[kind].append(e0.elapsed_time(e1))
         ms = {k: statistics.median(v) for k, v in times.items()}
-        res[name] = {"int8_launches": launches, "conv12_launches": conv12_launches, "losses": losses,
+        res[name] = {"int8_launches": launches, "quantize_launches": quant_launches,
+                     "conv12_launches": conv12_launches, "losses": losses,
                      "step_ms_float": ms["float"], "step_ms_int8": ms["int8"], "scales": qd}
-        print(f"int8 Trainer {name} bs{BATCH} G{G_PAD}: 3 steps, int8 launches {launches}, conv12 "
+        print(f"int8 Trainer {name} bs{BATCH} G{G_PAD}: 3 steps, int8 conv launches {launches}, quantize "
+              f"{quant_launches}, conv12 "
               f"({conv12_cuda.KERNEL_OF[dtype]}) launches {conv12_launches}, losses {losses[0]:.4f} -> "
               f"{losses[-1]:.4f}, trunk bit-unchanged; {ms['int8']:.2f} ms/step against {ms['float']:.2f} float "
               f"(in turns, CUDA events) ({card})")
@@ -1734,7 +1825,8 @@ def int8_train_cli_check(card: str, records: Path, tmp: Path) -> dict:
     validation batch: calibration (the float path, whose conv_1_2 is the
     bfloat16 conv12 kernel) over the first batches writes quant.json (the 12
     layers), then every forward (train steps and validation) launches the
-    int8 kernel 11 times and the conv12 kernel once."""
+    int8 conv kernel and the quantize kernel 11 times each and the conv12
+    kernel once."""
     from object_detection_torch2_tpu_torch.cli import train
     from object_detection_torch2_tpu_torch.models.quant import QUANT_LAYERS
     from object_detection_torch2_tpu_torch.ops import conv12_cuda
@@ -1745,25 +1837,28 @@ def int8_train_cli_check(card: str, records: Path, tmp: Path) -> dict:
             "--trunk_int8"]
     conv12_cuda.kernel_launches.update(dict.fromkeys(conv12_cuda.kernel_launches, 0))
     t0 = time.perf_counter()
-    out, launches = int8_launches(lambda: train.main(argv))
+    out, launches, quant_launches = int8_launches(lambda: train.main(argv))
     main_s = time.perf_counter() - t0
     forwards = 2 * (CLI_STEPS + VAL_RECORDS // BATCH)
     calib = min(8, -(-TRAIN_RECORDS // BATCH))  # --calib_batches 8
     qd = json.loads((tmp / "result" / "detection" / "quant.json").read_text())
     conv12 = conv12_cuda.kernel_launches["conv12_bf16"]
     if (set(qd) != {f"amax_{layer}" for layer in QUANT_LAYERS} or launches != 11 * forwards
-            or conv12 != forwards + calib):
-        raise AssertionError(f"training CLI --trunk_int8: quant.json keys {sorted(qd)}, {launches} int8 and "
-                             f"{conv12} conv12 launches for {forwards} forwards and {calib} calibration batches")
+            or quant_launches != 11 * forwards or conv12 != forwards + calib):
+        raise AssertionError(f"training CLI --trunk_int8: quant.json keys {sorted(qd)}, {launches} int8 conv, "
+                             f"{quant_launches} quantize and {conv12} conv12 launches for {forwards} forwards and "
+                             f"{calib} calibration batches")
     losses = torch.cat(out["losses"]).float().cpu()
     if not bool(torch.isfinite(losses).all()):
         raise AssertionError(f"training CLI --trunk_int8: non-finite loss {losses.tolist()}")
     row = out["phase_times"][-1]
     print(f"training CLI --trunk_int8 bfloat16 bs{BATCH}: quant.json with {len(qd)} layers calibrated over {calib} "
-          f"batches, 2 epochs, int8 launches {launches} and conv12 {conv12} for {forwards} forwards and the "
+          f"batches, 2 epochs, int8 conv launches {launches}, quantize {quant_launches} and conv12 {conv12} for "
+          f"{forwards} forwards and the "
           f"calibration; epoch 2 train loop "
           f"{row['img_per_s_train_loop']} img/s, wall {row['img_per_s_wall']}; main() {main_s:.1f} s ({card})")
-    return {"launches": launches, "conv12_launches": conv12, "quant_keys": len(qd), "losses": losses.tolist(),
+    return {"launches": launches, "quantize_launches": quant_launches, "conv12_launches": conv12,
+            "quant_keys": len(qd), "losses": losses.tolist(),
             "phase_times": out["phase_times"], "main_s": main_s}
 
 
@@ -1772,9 +1867,9 @@ def int8_eval_check(card: str, mode: str, tmp: Path) -> dict:
     (calibrated by the CLI over the records' first batches and written to
     quant_full.json; a second run loads it), bfloat16, over 70 seeded records
     whose ground truth is planted on the int8 Predictor's own top-3
-    detections: parity mAP 1.0, one NMS launch a batch, 11 or 27 int8
-    launches a batch, batch 0's matches through the plain int8 conv and the
-    plain sweep identical to the pipeline's."""
+    detections: parity mAP 1.0, one NMS launch a batch, 11 or 27 int8 conv
+    and as many quantize launches a batch, batch 0's matches through the
+    plain int8 conv and the plain sweep identical to the pipeline's."""
     from object_detection_torch2_tpu_torch.cli import evaluate
     from object_detection_torch2_tpu_torch.core.anchors import default_boxes, feature_grids_for
     from object_detection_torch2_tpu_torch.data.augment import to_tensor_batch
@@ -1811,12 +1906,14 @@ def int8_eval_check(card: str, mode: str, tmp: Path) -> dict:
     for _ in range(1 if mode == "trunk_int8" else 2):
         nms_cuda.launches = 0
         t0 = time.perf_counter()
-        (aps, mean_ap, _, _), launches = int8_launches(lambda: evaluate.main(argv))
+        (aps, mean_ap, _, _), launches, quant_launches = int8_launches(lambda: evaluate.main(argv))
         runs.append({"mean_ap": mean_ap, "aps": [float(a) for a in aps], "int8_launches": launches,
-                     "nms_launches": nms_cuda.launches, "main_s": time.perf_counter() - t0})
-        if not abs(mean_ap - 1.0) <= 1e-6 or nms_cuda.launches != n_batches or launches != per_forward * n_batches:
-            raise AssertionError(f"evaluate --{mode}: parity mAP {mean_ap!r}, {nms_cuda.launches} NMS and {launches} "
-                                 f"int8 launches for {n_batches} batches")
+                     "quantize_launches": quant_launches, "nms_launches": nms_cuda.launches,
+                     "main_s": time.perf_counter() - t0})
+        if (not abs(mean_ap - 1.0) <= 1e-6 or nms_cuda.launches != n_batches or launches != per_forward * n_batches
+                or quant_launches != per_forward * n_batches):
+            raise AssertionError(f"evaluate --{mode}: parity mAP {mean_ap!r}, {nms_cuda.launches} NMS, {launches} "
+                                 f"int8 conv and {quant_launches} quantize launches for {n_batches} batches")
     if mode == "full_int8":
         written = json.loads((result / "detection" / "quant_full.json").read_text())
         same_aps = np.array_equal(runs[0]["aps"], runs[1]["aps"], equal_nan=True)  # NaN: a class without GT
@@ -1846,15 +1943,16 @@ def int8_eval_check(card: str, mode: str, tmp: Path) -> dict:
             raise AssertionError(f"evaluate --{mode}: batch-0 matches '{key}' differ between the kernels and the "
                                  f"plain int8 conv and sweep")
     print(f"evaluation CLI --{mode} bfloat16 bs{BATCH}: parity mAP {runs[0]['mean_ap']:.7f} on ground truth planted "
-          f"on the int8 model's detections, NMS launches {runs[0]['nms_launches']}, int8 launches "
-          f"{runs[0]['int8_launches']} for {n_batches} batches"
+          f"on the int8 model's detections, NMS launches {runs[0]['nms_launches']}, int8 conv launches "
+          f"{runs[0]['int8_launches']} and quantize {runs[0]['quantize_launches']} for {n_batches} batches"
           + (", quant_full.json written by the first run equal to the calibration and loaded by the second (same "
              "APs)" if mode == "full_int8" else "")
           + f"; batch-0 matches identical through the plain int8 conv and plain sweep; main() "
           f"{runs[0]['main_s']:.1f} s ({card})")
     del model, run
     torch.cuda.empty_cache()
-    return {"runs": runs, "launches": sum(r["int8_launches"] for r in runs), "scales": qd}
+    return {"runs": runs, "launches": sum(r["int8_launches"] for r in runs),
+            "quantize_launches": sum(r["quantize_launches"] for r in runs), "scales": qd}
 
 
 def int8_accuracy_check(card: str) -> dict:
@@ -1895,8 +1993,9 @@ def int8_accuracy_check(card: str) -> dict:
 
 def int8_export_check(card: str, tmp: Path) -> dict:
     """cli.inference --export_pipeline --trunk_int8 for cuda: the program holds
-    11 calls of torch.ops.odt.int8_conv, reloads, and gives the live int8
-    pipeline's rows with 11 int8 launches."""
+    11 calls of torch.ops.odt.int8_conv and 11 of torch.ops.odt.quantize_act,
+    reloads, and gives the live int8 pipeline's rows with 11 launches of each
+    kernel."""
     import io
     import zipfile
 
@@ -1916,36 +2015,50 @@ def int8_export_check(card: str, tmp: Path) -> dict:
     with zipfile.ZipFile(path) as zf:
         program = torch.export.load(io.BytesIO(zf.read("cuda.pt2")))
     calls = sum(1 for n in program.graph.nodes if n.op == "call_function" and "int8_conv" in str(n.target))
+    quant_calls = sum(1 for n in program.graph.nodes if n.op == "call_function" and "quantize_act" in str(n.target))
     exported, _ = load_detection_pipeline(path)
     images = np.random.default_rng(43).integers(0, 256, (BATCH, IMSIZE, IMSIZE, 3), dtype=np.uint8)
-    (packed_x, valid_x), launches = int8_launches(lambda: exported(images, BATCH))
+    (packed_x, valid_x), launches, quant_launches = int8_launches(lambda: exported(images, BATCH))
     model = SSD(num_classes=21, dtype=torch.bfloat16, seed=0, trunk_int8=True)
     model.set_quant(load_quant(result / "detection" / "quant.json"))
     packed_l, valid_l = build_detection_pipeline(model, True, IMSIZE, device=DEVICE)(images, BATCH)
-    if calls != 11 or launches != 11 or not (torch.equal(packed_x, packed_l) and torch.equal(valid_x, valid_l)):
-        raise AssertionError(f"exported --trunk_int8 pipeline: {calls} int8 op calls in the graph, {launches} "
-                             f"launches, rows equal to live {torch.equal(packed_x, packed_l)}")
-    print(f"exported pipeline --trunk_int8 bfloat16 bs{BATCH} (cuda, {export_s:.1f} s): {calls} int8_conv calls in "
-          f"the graph, {launches} int8 launches, rows identical to the live int8 pipeline's ({card})")
+    if (calls != 11 or quant_calls != 11 or launches != 11 or quant_launches != 11
+            or not (torch.equal(packed_x, packed_l) and torch.equal(valid_x, valid_l))):
+        raise AssertionError(f"exported --trunk_int8 pipeline: {calls} int8_conv and {quant_calls} quantize_act op "
+                             f"calls in the graph, {launches} and {quant_launches} launches, rows equal to live "
+                             f"{torch.equal(packed_x, packed_l)}")
+    print(f"exported pipeline --trunk_int8 bfloat16 bs{BATCH} (cuda, {export_s:.1f} s): {calls} int8_conv and "
+          f"{quant_calls} quantize_act calls in the graph, {launches} int8 conv and {quant_launches} quantize "
+          f"launches, rows identical to the live int8 pipeline's ({card})")
     del model, exported
     torch.cuda.empty_cache()
-    return {"graph_int8_calls": calls, "launches": launches, "export_s": export_s}
+    return {"graph_int8_calls": calls, "graph_quantize_calls": quant_calls, "launches": launches,
+            "quantize_launches": quant_launches, "export_s": export_s}
 
 
 def phase_int8(card: str) -> dict:
-    """The int8 paths: the kernel against its plain version at every layer
-    (with the per-layer times), the Trainer, the training CLI, the
-    evaluation CLI in both int8 modes, accuracy against float, the export."""
+    """The int8 paths: the conv kernel and the quantize kernel against their
+    plain versions at every layer (with the per-layer times), the Trainer,
+    the training CLI, the evaluation CLI in both int8 modes, accuracy against
+    float, the export."""
     t0 = time.perf_counter()
     res = {"table": int8_layer_table(card)}
     trunk, full = res["table"]["trunk"], res["table"]["full"]
     print(f"int8 conv kernel bit-equal to plain (int32, float32 and bfloat16 epilogues) at all "
-          f"{len(res['table']['layers'])} quantizable layers and a ragged {list(INT8_RAGGED[:4])}; blocks 2-5 "
-          f"bs{BATCH}: "
+          f"{len(res['table']['layers'])} quantizable layers, a ragged {list(INT8_RAGGED[:4])} and the K-tail / "
+          f"ragged-N cases {[name for name, _ in INT8_TAIL_CASES]}; blocks 2-5 bs{BATCH}: "
           f"kernel {trunk['kernel_ms']:.3f} ms, bound {trunk['bound_ms']:.4f} ({trunk['operations'] / 1e12:.3f} T "
           f"int8 operations), cuDNN bf16 {trunk['cudnn_bf16_ms']:.3f}, _int_mm {trunk['int_mm_ms']}, plain "
           f"{trunk['plain_ms']:.2f}; all 27 full-int8 layers: kernel {full['kernel_ms']:.3f} ms, bound "
           f"{full['bound_ms']:.4f} ({card})")
+    res["quantize"] = quantize_table(card)
+    qt, qf = res["quantize"]["trunk"], res["quantize"]["full"]
+    print(f"quantize kernel bit-equal to quant.quantize_act at the inputs of all {len(res['quantize']['layers'])} "
+          f"--full_int8 layers (bfloat16 and float32, true division and reciprocal, power-of-two and calibrated "
+          f"scales); blocks 2-5 bs{BATCH} bfloat16: kernel {qt['bfloat16_kernel_ms']:.4f} ms, bound "
+          f"{qt['bfloat16_bound_ms']:.4f} (bytes), plain chain {qt['bfloat16_plain_ms']:.3f}; float32 kernel "
+          f"{qt['float32_kernel_ms']:.4f}, bound {qt['float32_bound_ms']:.4f}, plain {qt['float32_plain_ms']:.3f}; "
+          f"27 layers bfloat16: kernel {qf['bfloat16_kernel_ms']:.4f}, bound {qf['bfloat16_bound_ms']:.4f} ({card})")
     res["trainer"] = int8_trainer_check(card)
     rng = np.random.default_rng(56)
     with tempfile.TemporaryDirectory() as tmp:
@@ -1983,6 +2096,32 @@ def int8_entry(r: dict) -> dict:
             "cudnn_bf16_ms": t["cudnn_bf16_ms"], "shape": "blocks 2-5 (11 convs) at batch 32, 300x300",
             "operations": t["operations"], "bytes": t["bytes"], "full_int8_27_layers": r["table"]["full"],
             "layers": r["table"]["layers"]}
+
+
+def quantize_entry(r: dict) -> dict:
+    """The kernels-line entry of quantize_act: bfloat16 times summed over the
+    inputs of the 11 layers of blocks 2-5 at batch 32 (the --trunk_int8 main
+    path), every layer beside them; launches by path. No single PyTorch call
+    computes the same function (torch.quantize_per_tensor clamps to -128 and
+    scales by the inverse), so library_ms is null."""
+    by_path = {"trainer": sum(r["trainer"][d]["quantize_launches"] for d in ("float32", "bfloat16")),
+               "train_cli": r["train_cli"]["quantize_launches"],
+               "evaluation_trunk_int8": r["evaluation_trunk_int8"]["quantize_launches"],
+               "evaluation_full_int8": r["evaluation_full_int8"]["quantize_launches"],
+               "export": r["export"]["quantize_launches"]}
+    t = r["quantize"]["trunk"]
+    return {"name": "quantize_act", "route": "cuda", "custom_op": "odt::quantize_act (ops/registry.py)",
+            "source": "object_detection_torch2_tpu_torch/csrc/quantize_act.cu",
+            "replaces": "object_detection_torch2_tpu/models/quant.py:76 (quantize_act, jnp ops fused by XLA; "
+                        "not a TPU kernel)",
+            "launches": sum(by_path.values()), "launches_by_path": by_path, "max_abs_err": 0.0,
+            "bit_equal_to_plain": True, "ms": t["bfloat16_kernel_ms"], "plain_ms": t["bfloat16_plain_ms"],
+            "bound_ms": t["bfloat16_bound_ms"], "bound_by": "bytes", "library_ms": None,
+            "library": "none (torch.quantize_per_tensor is another function)",
+            "float32": {"ms": t["float32_kernel_ms"], "plain_ms": t["float32_plain_ms"],
+                        "bound_ms": t["float32_bound_ms"]},
+            "shape": "the inputs of blocks 2-5 (11 convs) at batch 32, 300x300, bfloat16", "bytes": t["bytes"],
+            "full_int8_27_layers": r["quantize"]["full"], "layers": r["quantize"]["layers"]}
 
 
 def conv12_entry(conv: dict, training: dict, train_cli: dict, trajectory: dict, device_cache: dict) -> dict:
@@ -2045,8 +2184,8 @@ def main(argv=None) -> int:
         print(f"  {name}: tensor-core instructions in SASS {counts}")
     if sum(sass["conv12_bf16"].values()) == 0:
         raise AssertionError("csrc/conv12_bf16.cu's machine code has no tensor-core instruction")
-    if sass["int8_conv"]["IMMA"] + sass["int8_conv"]["IGMMA"] == 0:
-        raise AssertionError("csrc/int8_conv.cu's machine code has no int8 tensor-core instruction (IMMA, IGMMA)")
+    if sass["int8_conv"]["IGMMA"] == 0:
+        raise AssertionError("csrc/int8_conv.cu's machine code has no int8 wgmma instruction (IGMMA)")
 
     results = {"card": card, "sass_tensor_core": sass, "reference": phase_reference(card)}
     results["kernel_vs_plain"] = phase_kernel_vs_plain(card)
@@ -2076,6 +2215,7 @@ def main(argv=None) -> int:
                                 results["trajectory"], results["device_cache_cli"]))
     results["int8"] = phase_int8(card)
     entries.append(int8_entry(results["int8"]))
+    entries.append(quantize_entry(results["int8"]))
     results["kernels"] = entries
     if args.out:
         args.out.parent.mkdir(parents=True, exist_ok=True)

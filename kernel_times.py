@@ -40,7 +40,11 @@ holding it bit-equal to its plain version there (chip_smoke.py's
 `int8_layer_table`): per layer the kernel's ms, its bound, the plain
 version's, cuDNN's bfloat16 conv and torch._int_mm on the im2col'd operands
 (the GEMM alone), and the sums over blocks 2-5 and over the 27 layers of
---full_int8; the table for PERF.md.
+--full_int8; then the activation quantize kernel (csrc/quantize_act.cu) at
+each of those layers' inputs, held bit-equal first (chip_smoke.py's
+`quantize_table`): its ms in bfloat16 and float32 beside its bytes bound and
+the plain chain's; the tables for PERF.md. A checkout from before the
+quantize kernel has no `quantize_table` run (its key is absent).
 
 Run versions in separate processes in turn (A, B, B, A) and compare within
 one call. Imports nothing of JAX.
@@ -293,6 +297,8 @@ def main(argv=None) -> int:
         res.update(fetch_ab())
     if args.int8:
         res["int8"] = cs.int8_layer_table(res["card"])
+        if (Path(pkg.__file__).parent / "ops" / "quantize_act_cuda.py").is_file():
+            res["quantize"] = cs.quantize_table(res["card"])
     print(json.dumps(res))
     return 0
 

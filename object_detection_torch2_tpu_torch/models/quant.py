@@ -4,13 +4,15 @@ constants and scale file format, imports nothing of it).
 
 Scheme, as the JAX package's (standard symmetric PTQ):
 - weights: per-output-channel symmetric scales sw[c] = amax|W[c]| * (1/127),
-  quantized from the frozen float weights on every forward (`weight_scales`,
-  `quantize_weight`), so weights files and converters are untouched;
+  quantized from the frozen float weights (`weight_scales`,
+  `quantize_weight`) once per weight version (`SSD` caches them), so weights
+  files and converters are untouched;
 - activations: one static scale per quantized layer input, sx =
   max(amax, 1e-12) * (1/127), from offline abs-max calibration
   (`calibrate_trunk`, `calibrate_full`) held in the model's `quant_amax`
   buffer (`SSD.set_quant`); the input is quantized by `quantize_act`
-  (round half to even, clipped to +-127);
+  (round half to even, clipped to +-127; on the card the one-pass kernel
+  csrc/quantize_act.cu);
 - the convolution: s8 x s8 -> s32, exact (ops/int8_conv.py: the kernel
   csrc/int8_conv.cu on the card), dequantized in its epilogue by the float32
   vector sx * sw, cast to the model's dtype, + bias in that dtype; BN and
@@ -43,6 +45,9 @@ import numpy as np
 import torch
 
 from object_detection_torch2_tpu_torch.ops.int8_conv import int8_conv  # noqa: F401  (the s8 x s8 -> s32 conv)
+# the plain activation quantize; the int8 layers run it through the op
+# odt::quantize_act (ops.int8_conv.quantize_act, one kernel on the card)
+from object_detection_torch2_tpu_torch.ops.int8_conv import quantize_act_plain as quantize_act
 
 # Quantized trunk layers: conv_1_2 and blocks 2-5 (all 3x3/s1/p1). conv_1_2
 # runs int8 only with SSD(conv12_int8=True), but calibration always records it.
@@ -72,15 +77,6 @@ def quantize_weight(w: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
 def act_scale(amax: torch.Tensor) -> torch.Tensor:
     """The activation scale sx = max(amax, 1e-12) * float32(1/127)."""
     return torch.clamp_min(amax.to(torch.float32), AMAX_FLOOR) * INV_127
-
-
-def quantize_act(x: torch.Tensor, scale: torch.Tensor, reciprocal: bool = False) -> torch.Tensor:
-    """Per-tensor symmetric int8 activation quantization (saturating):
-    round(x / scale) clipped to +-127; with `reciprocal`, x * float32(1 /
-    scale), the JAX Trainer's constant-folded form."""
-    xf = x.to(torch.float32)
-    q = torch.round(xf * (1.0 / scale) if reciprocal else xf / scale)
-    return torch.clamp(q, -127, 127).to(torch.int8)
 
 
 def fake_quant_conv(x: torch.Tensor, w: torch.Tensor, scale, stride: int = 1, pad: int = 1) -> torch.Tensor:

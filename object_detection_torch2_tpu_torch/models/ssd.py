@@ -36,11 +36,14 @@ JAX package's default.
 Int8 (models/quant.py; the JAX package's models/ssd.py:326-358, 382-441):
 - `trunk_int8=True` runs blocks 2-5 of the trunk as s8 x s8 -> s32 convs
   (ops/int8_conv.py: the kernel csrc/int8_conv.cu on the card): the input
-  quantized with its layer's static scale, the weights per output channel
-  from the float weights on every forward, the dequantization and bias in
-  the kernel's epilogue; BN and ReLU stay float. conv_1_2 joins them with
-  `conv12_int8=True` (default False, as in the JAX package); otherwise it
-  keeps its float path (the conv12 kernel with `conv12_kernel=True`).
+  quantized with its layer's static scale (`ops.int8_conv.quantize_act`: the
+  kernel csrc/quantize_act.cu on the card), the weights per output channel
+  from the float weights, the dequantization and bias in the kernel's
+  epilogue; BN and ReLU stay float. The int8 weights and their scales are
+  computed once per weight version and cached (`_int8_weight`). conv_1_2
+  joins them with `conv12_int8=True` (default False, as in the JAX
+  package); otherwise it keeps its float path (the conv12 kernel with
+  `conv12_kernel=True`).
 - `full_int8=True` (serving only) quantizes the trunk, the extra layers and
   the six heads.
 - `quant_calibrate=True` runs the float path and hands every quantized
@@ -74,7 +77,7 @@ from object_detection_torch2_tpu_torch import true_float32
 from object_detection_torch2_tpu_torch.models import quant
 from object_detection_torch2_tpu_torch.models.bn import BatchNorm
 from object_detection_torch2_tpu_torch.ops.conv12 import conv12
-from object_detection_torch2_tpu_torch.ops.int8_conv import int8_conv, pack_weight
+from object_detection_torch2_tpu_torch.ops.int8_conv import int8_conv, pack_weight, quantize_act
 
 # ImageNet normalization (reference: src/model/vgg16.py:19-20)
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
@@ -173,6 +176,7 @@ class SSD(nn.Module):
         self.quant_reciprocal = False
         self.quant_observer = None
         self.register_buffer("quant_amax", torch.zeros(len(quant.FULL_QUANT_LAYERS)), persistent=False)
+        self._int8_weights = {}  # layer -> (key, weight, w8, sw): see _int8_weight
         self.features = nn.ModuleDict()
         for suffix, cin, cout, k, stride, pad, _ in LAYER_SPECS:
             self.features[f"conv_{suffix}"] = nn.Conv2d(cin, cout, k, stride=stride, padding=pad)
@@ -225,14 +229,38 @@ class SSD(nn.Module):
         if self.quant_calibrate and self.quant_observer is not None and layer in _QUANT_INDEX:
             self.quant_observer(layer, x)
 
+    def _int8_weight(self, layer: str, conv: nn.Conv2d) -> tuple[torch.Tensor, torch.Tensor]:
+        """(w8, sw) of a quantized conv: its weights quantized per output
+        channel and packed (Cout, kh, kw, Cin), and their float32 scales (Cout,).
+        The weights are frozen, so both are computed once and cached, keyed on
+        (weight.data_ptr(), weight._version, device, dtype): an optimizer step,
+        `load_state_dict` or any in-place edit of the weight (not through
+        `.data`, which has a version counter of its own) recomputes them. The
+        entry holds the weight it was made from, so its memory is not reused
+        by another tensor while the key stands. While `torch.export` traces,
+        the cache is bypassed and the quantization stays in the graph."""
+        w = conv.weight
+        if torch.compiler.is_exporting():
+            sw = quant.weight_scales(w)
+            return pack_weight(quant.quantize_weight(w, sw)), sw
+        key = (w.data_ptr(), w._version, w.device, w.dtype)
+        hit = self._int8_weights.get(layer)
+        if hit is None or hit[0] != key:
+            with torch.no_grad():
+                sw = quant.weight_scales(w)
+                hit = (key, w.detach(), pack_weight(quant.quantize_weight(w, sw)), sw)
+            self._int8_weights[layer] = hit
+        return hit[2], hit[3]
+
     def _conv_int8(self, layer: str, conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
-        """conv on the int8 path: quantize x with the layer's static scale,
-        the weights per output channel, s8 x s8 -> s32, then (acc * (sx *
-        sw)) in the model's dtype + bias, in the op's epilogue."""
+        """conv on the int8 path: quantize x with the layer's static scale
+        (the odt::quantize_act op; x is channels_last on the main path, so the
+        contiguous call copies nothing), the cached per-channel int8 weights,
+        s8 x s8 -> s32, then (acc * (sx * sw)) in the model's dtype + bias, in
+        the op's epilogue."""
         sx = quant.act_scale(self.quant_amax[_QUANT_INDEX[layer]])
-        sw = quant.weight_scales(conv.weight)
-        w8 = pack_weight(quant.quantize_weight(conv.weight, sw))
-        x8 = quant.quantize_act(x, sx, reciprocal=self.quant_reciprocal).contiguous(memory_format=torch.channels_last)
+        w8, sw = self._int8_weight(layer, conv)
+        x8 = quantize_act(x.contiguous(memory_format=torch.channels_last), sx, self.quant_reciprocal)
         return int8_conv(x8, w8, sx * sw, conv.bias.to(self.dtype), conv.stride[0], conv.padding[0], self.dtype)
 
     def _conv(self, conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:

@@ -1,7 +1,9 @@
-"""The s8 x s8 -> s32 convolution of the quantized layers: the plain version,
-the dequantization epilogue and the dispatch (counterpart of the lax
-convolution in object_detection_torch2_tpu/models/quant.py::int8_conv and of
-the dequantization in its models/ssd.py `_conv_bn_relu_q`, `_head_conv_q`).
+"""The s8 x s8 -> s32 convolution of the quantized layers and the activation
+quantize that feeds it: the plain versions, the dequantization epilogue and
+the dispatch (counterpart of the lax convolution in
+object_detection_torch2_tpu/models/quant.py::int8_conv, of its
+`quantize_act` and of the dequantization in its models/ssd.py
+`_conv_bn_relu_q`, `_head_conv_q`).
 
 `int8_conv(x8, w8, scale, bias, stride, pad, out_dtype)` is what the
 quantized layers of `SSD` run, through the custom op `torch.ops.odt.int8_conv`
@@ -23,7 +25,15 @@ products (<= 127^2) and sums (< 127^2 * 9 * 1024 < 2^53) round nowhere, cast
 to int32. The epilogue's multiply and add are two PyTorch ops, so no FMA
 contracts them (the kernel uses __fmul_rn / __fadd_rn to match).
 
-There is no gradient: the op registers no autograd formula. The int8 layers
+`quantize_act(x, sx, reciprocal)` is the conv input's quantize, through the
+custom op `torch.ops.odt.quantize_act`: on a CPU tensor the plain version
+`quantize_act_plain` (which models/quant.py exports as `quantize_act`), on a
+CUDA tensor the one-pass kernel csrc/quantize_act.cu
+(ops/quantize_act_cuda.py) or an exception. x is (N, C, H, W) bfloat16 or
+float32 (channels_last on the card), sx a 0-d float32 tensor; the output is
+int8 channels_last.
+
+There is no gradient: the ops register no autograd formula. The int8 layers
 sit in the frozen trunk, upstream of every trainable parameter, and `Trainer`
 refuses the serving-only full-int8 model; `int8_conv` raises when grad mode
 is on and its scale or bias requires a gradient.
@@ -66,6 +76,26 @@ def int8_conv_plain(x8: torch.Tensor, w8: torch.Tensor, scale: torch.Tensor | No
     if scale is None:
         return acc
     return dequantize(acc, scale, bias, out_dtype).contiguous(memory_format=torch.channels_last)
+
+
+def quantize_act_plain(x: torch.Tensor, scale: torch.Tensor, reciprocal: bool = False) -> torch.Tensor:
+    """Per-tensor symmetric int8 activation quantization (saturating):
+    round(x / scale) half to even, clipped to +-127; with `reciprocal`,
+    x * float32(1 / scale), the JAX Trainer's constant-folded form."""
+    xf = x.to(torch.float32)
+    q = torch.round(xf * (1.0 / scale) if reciprocal else xf / scale)
+    return torch.clamp(q, -127, 127).to(torch.int8)
+
+
+def quantize_act(x: torch.Tensor, sx: torch.Tensor, reciprocal: bool = False) -> torch.Tensor:
+    """The activation quantize through `torch.ops.odt.quantize_act`: the plain
+    version for a CPU tensor, the kernel (or an exception) for a CUDA tensor,
+    an error for any other device. Int8 channels_last out."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no activation quantize for device {x.device}")
+    from object_detection_torch2_tpu_torch.ops import registry
+
+    return registry.quantize_act(x, sx, reciprocal)
 
 
 def int8_conv(x8: torch.Tensor, w8: torch.Tensor, scale: torch.Tensor | None = None,

@@ -1,6 +1,7 @@
 """The int8 convolution on the card, bound with ctypes: csrc/int8_conv.cu, an
-implicit GEMM on the int8 tensor cores (mma.sync m16n8k32) with the
-dequantization and bias fused into its epilogue.
+implicit GEMM on the int8 tensor cores (wgmma s8, fed by TMA and cp.async
+through an mbarrier ring) with the dequantization and bias fused into its
+epilogue.
 
 `kernel_launches` counts the kernel's launches: `int8_conv_cuda` adds one each
 time it launches it, and nothing else touches it but a caller that resets it.
@@ -16,7 +17,7 @@ import torch
 from object_detection_torch2_tpu_torch.ops import _build
 from object_detection_torch2_tpu_torch.ops.int8_conv import DTYPES, output_size
 
-K_STEP = 32  # bytes of K a kernel step stages: Cin must be a multiple of it
+K_STEP = 32  # bytes of K of one wgmma step: Cin must be a multiple of it
 MODE_OF = {torch.int32: 0, torch.float32: 1, torch.bfloat16: 2}
 kernel_launches = 0
 
@@ -69,6 +70,8 @@ def int8_conv_cuda(x8: torch.Tensor, w8: torch.Tensor, scale: torch.Tensor | Non
             raise ValueError(f"expected a contiguous float32 scale ({cout},), got {scale.dtype} {tuple(scale.shape)}")
         if bias is not None and (bias.dtype != out_dtype or tuple(bias.shape) != (cout,) or not bias.is_contiguous()):
             raise ValueError(f"expected a contiguous {out_dtype} bias ({cout},), got {bias.dtype} {tuple(bias.shape)}")
+        if scale.data_ptr() % 8 or (bias is not None and bias.data_ptr() % 8):
+            raise ValueError("int8_conv_cuda needs 8-byte aligned scale and bias (the epilogue reads them in pairs)")
     ho, wo = output_size(h, w, kh, kw, stride, pad)
     if ho < 1 or wo < 1:
         raise ValueError(f"no output: {h}x{w} input, {kh}x{kw} kernel, stride {stride}, pad {pad}")

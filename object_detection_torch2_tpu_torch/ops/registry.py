@@ -13,14 +13,19 @@ implementation for each device and a fake one for tracing:
 - `torch.ops.odt.int8_conv(x8, w8, scale, bias, stride, pad, out_dtype)`:
   "cuda" runs the int8 convolution kernel (`ops.int8_conv_cuda.int8_conv_cuda`),
   "cpu" the plain version (`ops.int8_conv.int8_conv_plain`); it has no
-  gradient (no autograd formula is registered: the int8 layers are frozen).
+  gradient (no autograd formula is registered: the int8 layers are frozen);
+- `torch.ops.odt.quantize_act(x, sx, reciprocal)`: "cuda" runs the one-pass
+  activation quantize (`ops.quantize_act_cuda.quantize_act_cuda`), "cpu" the
+  plain version (`ops.int8_conv.quantize_act_plain`, models/quant.py's
+  `quantize_act`); no gradient either.
 
 The op dispatches on its tensors' device. That is no fallback: a CUDA tensor
 launches the kernel or raises, and only a CPU tensor takes the plain version.
 The kernels' wrappers still count their launches. `ops.nms_cuda.keep_sorted`,
-`ops.conv12.conv12` and `ops.int8_conv.int8_conv` call these ops; an exported program holds them as
-calls of `torch.ops.odt.*`, so loading one needs this module imported and no
-model code.
+`ops.conv12.conv12`, `ops.int8_conv.int8_conv` and
+`ops.int8_conv.quantize_act` call these ops; an exported program holds them
+as calls of `torch.ops.odt.*`, so loading one needs this module imported and
+no model code.
 
 The op signatures are annotated without `from __future__ import
 annotations`: `torch.library` infers each op's schema from them.
@@ -31,8 +36,8 @@ from typing import Optional
 import torch
 
 from object_detection_torch2_tpu_torch.ops import conv12 as conv12_mod
-from object_detection_torch2_tpu_torch.ops import conv12_cuda, int8_conv_cuda, nms_cuda
-from object_detection_torch2_tpu_torch.ops.int8_conv import int8_conv_plain, output_size
+from object_detection_torch2_tpu_torch.ops import conv12_cuda, int8_conv_cuda, nms_cuda, quantize_act_cuda
+from object_detection_torch2_tpu_torch.ops.int8_conv import int8_conv_plain, output_size, quantize_act_plain
 from object_detection_torch2_tpu_torch.ops.nms import _blocked_keep_sorted
 
 
@@ -89,3 +94,19 @@ def _int8_conv_fake(x8, w8, scale, bias, stride, pad, out_dtype):
     dtype = torch.int32 if scale is None else out_dtype or torch.float32
     return torch.empty((x8.shape[0], w8.shape[0], ho, wo), dtype=dtype, device=x8.device,
                        memory_format=torch.channels_last)
+
+
+@torch.library.custom_op("odt::quantize_act", mutates_args=(), device_types="cpu")
+def quantize_act(x: torch.Tensor, sx: torch.Tensor, reciprocal: bool) -> torch.Tensor:
+    """int8 round(x / sx) (with `reciprocal`: x * float32(1 / sx)) clipped to +-127, channels_last."""
+    return quantize_act_plain(x, sx, reciprocal).contiguous(memory_format=torch.channels_last)
+
+
+@quantize_act.register_kernel("cuda")
+def _quantize_act_cuda(x, sx, reciprocal):
+    return quantize_act_cuda.quantize_act_cuda(x, sx, reciprocal)
+
+
+@quantize_act.register_fake
+def _quantize_act_fake(x, sx, reciprocal):
+    return torch.empty(x.shape, dtype=torch.int8, device=x.device, memory_format=torch.channels_last)

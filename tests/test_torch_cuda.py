@@ -495,6 +495,10 @@ INT8_CASES = [
     (5, 128, 5, 5, 256, 3, 1, 0),
     (4, 128, 3, 3, 256, 3, 1, 0),
     (1, 32, 1, 1, 8, 1, 1, 0),
+    # the K tail and the ragged N together: K = 288 and 576 are not multiples
+    # of a 128-byte stage, Cout 150 half-fills the second 128-wide N half
+    (2, 32, 1, 1, 150, 3, 1, 1),
+    (3, 64, 10, 10, 150, 3, 1, 1),
 ]
 
 
@@ -538,6 +542,8 @@ def test_int8_conv_wrapper_refusals(card):
         int8_conv_cuda.int8_conv_cuda(x8.contiguous(), w8)
     with pytest.raises(ValueError, match="bias"):
         int8_conv_cuda.int8_conv_cuda(x8, w8, scale, bias.bfloat16(), 1, 1, torch.float32)
+    with pytest.raises(ValueError, match="8-byte aligned"):
+        int8_conv_cuda.int8_conv_cuda(x8, w8, torch.cat([scale[:1], scale])[1:], bias, 1, 1, torch.float32)
     with pytest.raises(ValueError, match="CUDA device"):
         int8_conv_cuda.int8_conv_cuda(x8.cpu(), w8)
     with pytest.raises(TypeError, match="int8"):
@@ -545,18 +551,51 @@ def test_int8_conv_wrapper_refusals(card):
 
 
 def test_int8_library_has_tensor_core_instructions(card):
+    """The int8 conv is the wgmma kernel: IGMMA in its machine code."""
     counts = _build.tensor_core_instructions("int8_conv")
-    assert counts["IMMA"] + counts["IGMMA"] > 0, counts
+    assert counts["IGMMA"] > 0, counts
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("reciprocal", [False, True])
+def test_quantize_act_kernel_equals_plain(card, dtype, reciprocal):
+    """The one-pass quantize bit-equal to models/quant.py's quantize_act on
+    the card, one launch a call, on exact ties (k + 0.5) * sx, values beyond
+    +-127 sx and -0.0, at a ragged element count (a scalar tail) and at a
+    layer's shape; a contiguous NCHW input is refused, not copied."""
+    from object_detection_torch2_tpu_torch.models import quant
+    from object_detection_torch2_tpu_torch.ops import quantize_act_cuda
+
+    rng = np.random.default_rng(3 + reciprocal)
+    for shape, sx in (((2, 32, 7, 5), np.float32(2.0 ** -5)), ((3, 256, 75, 75), np.float32(0.0371)),
+                      ((1, 48, 1, 3), np.float32(0.11))):
+        x = ((rng.integers(-140, 140, shape) + 0.5) * sx).astype(np.float32)
+        x.reshape(-1)[: x.size // 2] = rng.uniform(-200 * sx, 200 * sx, x.size // 2)
+        x.reshape(-1)[:3] = (-0.0, 1e30, -np.inf)
+        xt = torch.from_numpy(x).to(card).to(dtype).contiguous(memory_format=torch.channels_last)
+        s = torch.tensor(sx, device=card)
+        before = quantize_act_cuda.kernel_launches
+        got = quantize_act_cuda.quantize_act_cuda(xt, s, reciprocal)
+        torch.cuda.synchronize()
+        assert quantize_act_cuda.kernel_launches == before + 1
+        want = quant.quantize_act(xt, s, reciprocal)
+        assert got.dtype == torch.int8 and got.is_contiguous(memory_format=torch.channels_last)
+        assert torch.equal(got, want), (shape, int((got != want).sum()))
+    with pytest.raises(ValueError, match="channels_last"):
+        quantize_act_cuda.quantize_act_cuda(xt.contiguous(), s)
+    with pytest.raises(ValueError, match="0-d float32"):
+        quantize_act_cuda.quantize_act_cuda(xt, s.double())
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_int8_ssd_on_the_card_equals_the_plain_conv(card, dtype, monkeypatch):
-    """SSD(full_int8) at 264 on the card: its calibration, 27 int8 launches a
-    forward, and the output identical to the same forward with the plain
-    int8 conv in place of the kernel."""
+    """SSD(full_int8) at 264 on the card: its calibration, 27 int8 conv and
+    27 quantize launches a forward, and the output identical to the same
+    forward with the plain int8 conv and the plain quantize in place of the
+    kernels."""
     from object_detection_torch2_tpu_torch.models import quant
     from object_detection_torch2_tpu_torch.models import ssd as ssd_mod
-    from object_detection_torch2_tpu_torch.ops import int8_conv_cuda
+    from object_detection_torch2_tpu_torch.ops import int8_conv_cuda, quantize_act_cuda
     from object_detection_torch2_tpu_torch.ops.int8_conv import int8_conv_plain
 
     model = SSD(num_classes=21, dtype=dtype, seed=0).to(card)
@@ -564,12 +603,13 @@ def test_int8_ssd_on_the_card_equals_the_plain_conv(card, dtype, monkeypatch):
     qd = quant.calibrate_full(model, [x])
     model.set_quant(qd)
     model.full_int8 = True
-    before = int8_conv_cuda.kernel_launches
+    before = int8_conv_cuda.kernel_launches, quantize_act_cuda.kernel_launches
     with torch.no_grad():
         got = model(x)
     torch.cuda.synchronize()
-    assert int8_conv_cuda.kernel_launches == before + 27
+    assert (int8_conv_cuda.kernel_launches, quantize_act_cuda.kernel_launches) == (before[0] + 27, before[1] + 27)
     monkeypatch.setattr(ssd_mod, "int8_conv", int8_conv_plain)
+    monkeypatch.setattr(ssd_mod, "quantize_act", lambda x, sx, reciprocal: quant.quantize_act(x, sx, reciprocal))
     with torch.no_grad():
         want = model(x)
     assert torch.equal(got, want)

@@ -193,19 +193,19 @@ def test_kernel_wrapper_refuses_cpu_tensors():
 
 def test_build_flags_and_missing_nvcc(monkeypatch, tmp_path):
     """The NMS kernel is built for sm_90a without FMA contraction or fast
-    math, both conv_1_2 kernels and the int8 conv (whose float epilogue uses
-    explicit round-to-nearest intrinsics) with FMA contraction; each source
-    has its own build directory, keyed by its flags; and a machine without
-    nvcc gets an error that says so."""
+    math, both conv_1_2 kernels, the int8 conv and the activation quantize
+    (whose float arithmetic uses explicit round-to-nearest intrinsics) with
+    FMA contraction; each source has its own build directory, keyed by its
+    flags; and a machine without nvcc gets an error that says so."""
     srcs = {s.name: s for s in _build.sources()}
-    assert sorted(srcs) == ["conv12.cu", "conv12_bf16.cu", "int8_conv.cu", "nms_keep_sorted.cu"]
+    assert sorted(srcs) == ["conv12.cu", "conv12_bf16.cu", "int8_conv.cu", "nms_keep_sorted.cu", "quantize_act.cu"]
     nms_cmd = _build.nvcc_command("nvcc", srcs["nms_keep_sorted.cu"], tmp_path / "lib.so")
     conv_cmds = [_build.nvcc_command("nvcc", srcs[f], tmp_path / "lib.so")
-                 for f in ("conv12.cu", "conv12_bf16.cu", "int8_conv.cu")]
+                 for f in ("conv12.cu", "conv12_bf16.cu", "int8_conv.cu", "quantize_act.cu")]
     for cmd in (nms_cmd, *conv_cmds):
         assert "arch=compute_90a,code=sm_90a" in cmd and "--use_fast_math" not in cmd
     assert "-fmad=false" in nms_cmd and all("-fmad=false" not in cmd for cmd in conv_cmds)
-    assert len({_build.build_dir(s.stem) for s in srcs.values()}) == 4
+    assert len({_build.build_dir(s.stem) for s in srcs.values()}) == 5
     before = _build.build_dir("conv12")
     monkeypatch.setitem(_build.SOURCE_FLAGS, "conv12", ("-DEXTRA",))
     assert _build.build_dir("conv12") != before
