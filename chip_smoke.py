@@ -1,7 +1,7 @@
 """Drives the PyTorch/CUDA port's serving, evaluation and training paths, its
 training (both purposes), inference and evaluation CLIs, its serving
-plumbing, its exported pipeline and its int8 paths on one CUDA card, and
-checks them.
+plumbing, its exported pipeline, its int8 paths and its data parallelism on
+one CUDA card, and checks them.
 
     python3 chip_smoke.py [--out results.json]
 
@@ -134,8 +134,26 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    the JAX package's thresholds at its tests' sizes (trunk at 5_3, 64x64:
    cosine > 0.97; full int8, 264x264: > 0.95), and at 300x300 both above
    0.95;
-17. the kernels line (JSON; launches summed over the paths that ran each
-   kernel, by path), then the last line
+17. data parallelism (parallel/mesh.py): NCCL at world size 1 (torchrun's
+   environment set here; the card has no second device and NCCL refuses two
+   ranks on one GPU): `Trainer(mesh=)` against the plain Trainer, bfloat16,
+   batch 32, G = 64, augment and Adam, steps in turns (CUDA events and host
+   enqueue ms), bit-equal after the same steps, 2 mesh steps under
+   `torch.cuda.set_sync_debug_mode("error")`, the gradient all-reduce alone;
+   `cli.train --distributed` (4 steps, --orbax_dir) against the
+   single-process CLI: losses and weights file bit-equal, 4 conv12 launches.
+   Then 2 gloo ranks on the one card: `Trainer(mesh=)` at global batch 32
+   (16 a rank), 3 SGD steps in float32 and bfloat16 against one process (the
+   CPU tests' tolerances in float32, the trajectory budget in bfloat16), the
+   ranks bit-identical, conv12 launches per rank; `cli.evaluate
+   --distributed --dist_backend gloo` as 2 processes with torchrun's
+   environment over 70 records at batch 32 (rank 1's last slice empty),
+   float32 with batch statistics and `--trunk_int8` in bfloat16 with running
+   statistics, each on ground truth planted on that model's own detections:
+   parity mAP 1.0 on both ranks as in one process, 3 NMS launches a rank and
+   33 of each int8 kernel a rank with --trunk_int8;
+18. the kernels line (JSON; launches summed over the paths that ran each
+   kernel, by path, the data-parallel paths' summed over ranks), then the last line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Imports nothing of JAX. Every time printed here was measured on the card in
@@ -2075,6 +2093,360 @@ def phase_int8(card: str) -> dict:
     return res
 
 
+DP_WORLD = 2  # ranks of the gloo runs, both on the one card
+DP_STEPS = 3  # SGD steps of the 2-rank Trainer runs
+DP_TURNS = 6  # timed step pairs of the NCCL world-1 A/B, in turns
+DP_RANK_TIMEOUT = 300  # seconds for a group of ranks to finish
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def torchrun_env(rank: int, world: int, port: int) -> dict:
+    """torchrun's environment for `rank` of a one-host group: every rank on
+    card 0 (LOCAL_RANK 0: the machine has one), talking over the loopback."""
+    return {"RANK": str(rank), "WORLD_SIZE": str(world), "LOCAL_RANK": "0", "MASTER_ADDR": "127.0.0.1",
+            "MASTER_PORT": str(port), "GLOO_SOCKET_IFNAME": "lo", "NCCL_SOCKET_IFNAME": "lo"}
+
+
+def dp_trainer_runs(mesh, images, targets) -> dict:
+    """`Trainer(mesh=)` at full width, float32 and bfloat16: DP_STEPS SGD
+    steps on this rank's rows of each global batch (all rows without a
+    mesh), cuDNN deterministic, conv12 kernel on; the conv12 launches of the
+    steps (counts reset just before, read just after), the losses, the
+    trained parameters and the running statistics on the host."""
+    from object_detection_torch2_tpu_torch.core.anchors import default_boxes, feature_grids_for
+    from object_detection_torch2_tpu_torch.models.ssd import SSD
+    from object_detection_torch2_tpu_torch.ops import conv12_cuda
+    from object_detection_torch2_tpu_torch.parallel.mesh import local_rows
+    from object_detection_torch2_tpu_torch.train.trainer import Trainer
+
+    torch.backends.cudnn.deterministic = True
+    df = default_boxes(feature_grids_for(IMSIZE))
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        trainer = Trainer(SSD(num_classes=21, dtype=dtype, seed=0, conv12_kernel=True), default_boxes=df,
+                          mesh=mesh, device=None if mesh is not None else DEVICE)
+        state = trainer.init_state(lambda ps: torch.optim.SGD(ps, lr=1e-3))
+        torch.cuda.synchronize()
+        conv12_cuda.kernel_launches.update(dict.fromkeys(conv12_cuda.kernel_launches, 0))
+        losses = [float(trainer.train_step(state, local_rows(images[i], mesh), local_rows(targets[i], mesh)))
+                  for i in range(DP_STEPS)]
+        torch.cuda.synchronize()
+        out[str(dtype).replace("torch.", "")] = {
+            "losses": losses, "conv12_launches": conv12_cuda.kernel_launches[conv12_cuda.KERNEL_OF[dtype]],
+            "params": {k: v.detach().cpu() for k, v in state.trainable.items()},
+            "stats": {k: v.cpu() for k, v in state.batch_stats.items()}}
+        del trainer, state
+        torch.cuda.empty_cache()
+    return out
+
+
+DP_EVAL_RANK = """
+import json, sys
+from object_detection_torch2_tpu_torch.cli import evaluate
+from object_detection_torch2_tpu_torch.ops import int8_conv_cuda, nms_cuda, quantize_act_cuda
+nms_cuda.launches = int8_conv_cuda.kernel_launches = quantize_act_cuda.kernel_launches = 0
+aps, mean_ap, strict_ap, _ = evaluate.main(sys.argv[2:])
+json.dump({"mean_ap": mean_ap, "strict_ap": strict_ap, "aps": [float(a) for a in aps], "nms": nms_cuda.launches,
+           "int8_conv": int8_conv_cuda.kernel_launches, "quantize_act": quantize_act_cuda.kernel_launches},
+          open(sys.argv[1], "w"))
+"""
+
+
+def run_ranks(script: str, argv: list, world: int, tmp: Path) -> list:
+    """`python -c script <result file> argv...` as `world` processes with
+    torchrun's environment (one host, the one card), as torchrun starts
+    them; every rank's JSON result. A rank that fails ends the others and
+    raises with its error output."""
+    import os
+
+    port = free_port()
+    procs, logs = [], [tmp / f"rank{rank}.log" for rank in range(world)]
+    for rank in range(world):
+        with open(logs[rank], "w") as log:
+            procs.append(subprocess.Popen([sys.executable, "-c", script, str(tmp / f"rank{rank}.json"), *argv],
+                                          cwd=ROOT, env={**os.environ, **torchrun_env(rank, world, port)},
+                                          stdout=log, stderr=subprocess.STDOUT))
+    deadline = time.monotonic() + DP_RANK_TIMEOUT
+    try:
+        while any(p.poll() is None for p in procs) and time.monotonic() < deadline:
+            if any(p.poll() not in (None, 0) for p in procs):
+                break
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    bad = [r for r, p in enumerate(procs) if p.returncode != 0]
+    if bad:
+        raise AssertionError(f"rank(s) {bad} failed, were ended or timed out:\n"
+                             + "".join(f"--- rank {r}:\n{logs[r].read_text()[-3000:]}" for r in bad))
+    return [json.loads((tmp / f"rank{r}.json").read_text()) for r in range(world)]
+
+
+def dp_nccl_world1(card: str, tmp: Path) -> dict:
+    """NCCL at world size 1 (torchrun's environment set here), bfloat16,
+    batch 32, G = 64, conv12 kernel: (1) `Trainer(mesh=)` against the plain
+    Trainer from the same weights, steps in turns (plain, mesh, mesh,
+    plain), CUDA events; both take the same steps on the same batches and
+    must end bit-equal; 2 mesh steps under set_sync_debug_mode("error"); the
+    gradient all-reduce alone. (2) `cli.train --distributed` (4 steps,
+    --orbax_dir, so cuDNN deterministic) against the single-process CLI: the
+    losses and the weights file bit-equal; its conv12 launches."""
+    import os
+
+    from object_detection_torch2_tpu_torch.cli import train
+    from object_detection_torch2_tpu_torch.core.anchors import default_boxes, feature_grids_for
+    from object_detection_torch2_tpu_torch.models.ssd import SSD
+    from object_detection_torch2_tpu_torch.ops import conv12_cuda
+    from object_detection_torch2_tpu_torch.parallel import mesh as mesh_lib
+    from object_detection_torch2_tpu_torch.train.optimizer import adam_torch, exponential_epoch_schedule
+    from object_detection_torch2_tpu_torch.train.trainer import Trainer
+
+    os.environ.update(torchrun_env(0, 1, free_port()))
+    mesh = mesh_lib.init_distributed()
+    assert mesh.backend == "nccl" and mesh.world == 1, mesh
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        rng = np.random.default_rng(77)
+        images = torch.from_numpy(rng.integers(0, 256, (BATCH, IMSIZE, IMSIZE, 3), dtype=np.uint8)).to(DEVICE)
+        targets = torch.from_numpy(synth_targets(rng, BATCH, rng.integers(1, G_PAD + 1, BATCH), G_PAD)).to(DEVICE)
+        df = default_boxes(feature_grids_for(IMSIZE))
+        trainers, states = {}, {}
+        for name, m in (("plain", None), ("mesh", mesh)):
+            trainers[name] = Trainer(SSD(num_classes=21, dtype=torch.bfloat16, seed=0, conv12_kernel=True),
+                                     default_boxes=df, augment=True, mesh=m, device=DEVICE)
+            states[name] = trainers[name].init_state(
+                lambda ps: adam_torch(ps, exponential_epoch_schedule(1e-3, 0.95, 100), weight_decay=5e-4))
+        ms, host_ms = {"plain": [], "mesh": []}, {"plain": [], "mesh": []}
+        for name in ("plain", "mesh", "plain", "mesh"):  # warm-up, two steps each
+            trainers[name].train_step(states[name], images, targets)
+        for _ in range(DP_TURNS):
+            for name in ("plain", "mesh", "mesh", "plain"):
+                e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                e0.record()
+                trainers[name].train_step(states[name], images, targets)
+                e1.record()
+                host_ms[name].append((time.perf_counter() - t0) * 1e3)
+                e1.synchronize()
+                ms[name].append(e0.elapsed_time(e1))
+        for name in ("plain", "mesh"):  # as many steps each: 2 + 2 * DP_TURNS
+            assert states[name].step == 2 + 2 * DP_TURNS
+        for key, v in states["plain"].model.state_dict().items():
+            if not torch.equal(v, states["mesh"].model.state_dict()[key]):
+                raise AssertionError(f"NCCL world-1 Trainer(mesh=) differs from the plain Trainer at {key}")
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for _ in range(2):
+                trainers["mesh"].train_step(states["mesh"], images, targets)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        grads = [torch.randn_like(p) for p in states["mesh"].trainable.values()]
+        n_grad = sum(g.numel() for g in grads)
+        allreduce_ms = time_ms(lambda: mesh_lib.all_reduce_mean_(grads, mesh), reps=20)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        mesh_lib.shutdown()
+        del trainers, states
+        torch.cuda.empty_cache()
+    plain_ms, mesh_ms = statistics.median(ms["plain"]), statistics.median(ms["mesh"])
+    res = {"plain_step_ms": plain_ms, "mesh_step_ms": mesh_ms, "overhead_ms": mesh_ms - plain_ms,
+           "overhead_pct": (mesh_ms - plain_ms) / plain_ms * 100, "plain_ms_all": ms["plain"],
+           "mesh_ms_all": ms["mesh"], "plain_host_ms": statistics.median(host_ms["plain"]),
+           "mesh_host_ms": statistics.median(host_ms["mesh"]), "host_syncs_per_step": 0,
+           "grad_allreduce_ms": allreduce_ms, "grad_floats": n_grad}
+    print(f"data parallel, NCCL world 1, bf16 bs{BATCH} G{G_PAD} augmented Adam step: plain {plain_ms:.2f} ms, "
+          f"Trainer(mesh=) {mesh_ms:.2f} ms ({res['overhead_pct']:+.2f}%, in turns, medians of {2 * DP_TURNS}; "
+          f"host enqueue {res['plain_host_ms']:.2f} / {res['mesh_host_ms']:.2f} ms), bit-equal after "
+          f"{2 + 2 * DP_TURNS} steps; 0 host syncs under set_sync_debug_mode('error'); "
+          f"all-reduce of the {n_grad} trainable gradients {allreduce_ms:.4f} ms ({card})")
+
+    # the training CLI, single process and --distributed (world 1, NCCL)
+    rng = np.random.default_rng(78)
+    images = rng.integers(0, 256, (TRAIN_RECORDS, IMSIZE, IMSIZE, 3), dtype=np.uint8)
+    write_records(tmp / "train_records", images,
+                  synth_targets(rng, TRAIN_RECORDS, rng.integers(1, G_PAD + 1, TRAIN_RECORDS), G_PAD))
+    argv = ["--records_dir", str(tmp / "train_records"), "--batch_size", str(BATCH), "--imsize", str(IMSIZE),
+            "--dtype", "bfloat16", "--epochs", "1", "--steps_per_epoch", str(CLI_STEPS)]
+    outs = {}
+    for name, flags in (("single", []), ("distributed", ["--distributed"])):
+        d = tmp / f"cli_{name}"
+        os.environ.update(torchrun_env(0, 1, free_port()))
+        conv12_cuda.kernel_launches.update(dict.fromkeys(conv12_cuda.kernel_launches, 0))
+        out = train.main(argv + ["--result_dir", str(d), "--log_dir", str(d / "logs"), "--orbax_dir", str(d / "state"),
+                                 *flags])
+        outs[name] = {"losses": out["losses"][0].cpu(), "launches": conv12_cuda.kernel_launches["conv12_bf16"],
+                      "weights": (d / "detection" / "weights.msgpack").read_bytes()}
+    if not torch.equal(outs["single"]["losses"], outs["distributed"]["losses"]):
+        raise AssertionError(f"cli.train --distributed (NCCL, world 1) losses {outs['distributed']['losses']} "
+                             f"differ from the single-process run's {outs['single']['losses']}")
+    if outs["single"]["weights"] != outs["distributed"]["weights"]:
+        raise AssertionError("cli.train --distributed (NCCL, world 1) wrote another weights file than one process")
+    if outs["distributed"]["launches"] != CLI_STEPS:
+        raise AssertionError(f"cli.train --distributed launched conv12_bf16 {outs['distributed']['launches']} times "
+                             f"in {CLI_STEPS} steps")
+    res["cli"] = {"losses": outs["distributed"]["losses"].tolist(), "conv12_launches": outs["distributed"]["launches"]}
+    print(f"data parallel, cli.train --distributed (NCCL, world 1), bf16, {CLI_STEPS} steps: losses and weights file "
+          f"bit-equal to one process, {outs['distributed']['launches']} conv12_bf16 launches ({card})")
+    return res
+
+
+def dp_gloo_trainer(card: str) -> dict:
+    """2 ranks on the one card over gloo (`launch`, both on cuda:0), global
+    batch 32 (16 a rank), G = 64: `Trainer(mesh=)` against one process over
+    the whole batch, SGD, float32 at the CPU tests' tolerances (losses rtol
+    1e-5, parameters rtol 1e-4 / atol 4e-6, statistics rtol 1e-3 / atol
+    1e-5) and bfloat16 to the trajectory budget (losses within 0.02, the
+    trained models' eval forwards max |d| < 0.6, mean < 0.1); the ranks
+    bit-identical; each rank's conv12 launches."""
+    from object_detection_torch2_tpu_torch.models.ssd import SSD
+    from object_detection_torch2_tpu_torch.parallel.mesh import launch
+
+    rng = np.random.default_rng(79)
+    images = rng.integers(0, 256, (DP_STEPS, BATCH, IMSIZE, IMSIZE, 3), dtype=np.uint8)
+    targets = np.stack([synth_targets(rng, BATCH, rng.integers(1, G_PAD + 1, BATCH), G_PAD) for _ in range(DP_STEPS)])
+    t0 = time.perf_counter()
+    ranks = launch(dp_trainer_runs, DP_WORLD, (images, targets), backend="gloo", devices=["cuda:0"] * DP_WORLD,
+                   timeout=DP_RANK_TIMEOUT)
+    launch_s = time.perf_counter() - t0
+    one = dp_trainer_runs(None, images, targets)
+    res = {"launch_s": launch_s}
+    for name, r1 in one.items():
+        r0, rb = ranks[0][name], ranks[1][name]
+        if r0["losses"] != rb["losses"] or any(not torch.equal(r0[part][k], rb[part][k])
+                                               for part in ("params", "stats") for k in r0[part]):
+            raise AssertionError(f"{name}: the two ranks' losses, parameters or statistics differ")
+        launches = [r["conv12_launches"] for r in (r0, rb)]
+        if launches != [DP_STEPS] * DP_WORLD:
+            raise AssertionError(f"{name}: conv12 launches per rank {launches}, expected {DP_STEPS} each")
+        if name == "float32":
+            np.testing.assert_allclose(r0["losses"], r1["losses"], rtol=1e-5)
+            for part, rtol, atol in (("params", 1e-4, 4e-6), ("stats", 1e-3, 1e-5)):
+                for k in r1[part]:
+                    np.testing.assert_allclose(r0[part][k].numpy(), r1[part][k].numpy(), rtol=rtol, atol=atol,
+                                               err_msg=f"{name} {part} {k}")
+            check = "losses, parameters and statistics at the CPU tolerances"
+        else:
+            drift = max(abs(a - b) / abs(b) for a, b in zip(r0["losses"], r1["losses"]))
+            if not drift < 0.02:
+                raise AssertionError(f"bfloat16 2-rank loss drift {drift} from one process")
+            outs = []
+            for r in (r0, r1):
+                model = SSD(num_classes=21, dtype=torch.bfloat16, seed=0).to(DEVICE)
+                model.load_state_dict({**r["params"], **r["stats"]}, strict=False)
+                with torch.inference_mode():
+                    outs.append(model(torch.from_numpy(images[0]).to(DEVICE).float() / 255.0).float())
+            d = (outs[0] - outs[1]).abs()
+            if not (float(d.max()) < 0.6 and float(d.mean()) < 0.1):
+                raise AssertionError(f"bfloat16 2-rank model's eval forward max |d| {float(d.max())}, mean "
+                                     f"{float(d.mean())} from one process's")
+            check = f"loss drift {drift:.2e}, eval forward max |d| {float(d.max()):.3f}, mean {float(d.mean()):.4f}"
+        res[name] = {"losses": r0["losses"], "one_process_losses": r1["losses"], "conv12_launches": launches}
+        print(f"data parallel, 2 gloo ranks on one card, Trainer(mesh=) {name} bs{BATCH} ({BATCH // DP_WORLD} a rank) G{G_PAD}, "
+              f"{DP_STEPS} SGD steps against one process: {check}; ranks bit-identical; conv12 launches per rank "
+              f"{launches} ({card})")
+    return res
+
+
+def dp_gloo_evaluate(card: str, tmp: Path) -> dict:
+    """`cli.evaluate --distributed --dist_backend gloo` as 2 ranks on the
+    one card, torchrun's environment set here, over 70 records at batch 32:
+    the last batch of 6 leaves rank 1 an empty slice. float32 with batch
+    statistics, ground truth planted on `Predictor`'s top-3 detections: parity
+    mAP 1.0 in both runs, 3 NMS launches a rank. Then `--trunk_int8`
+    (bfloat16, running statistics, scales calibrated here, ground truth
+    planted on the int8 Predictor's detections): parity mAP 1.0 in both,
+    3 NMS and 33 launches of each int8 kernel a rank."""
+    from object_detection_torch2_tpu_torch.cli import evaluate
+    from object_detection_torch2_tpu_torch.infer import Predictor
+    from object_detection_torch2_tpu_torch.models import quant
+    from object_detection_torch2_tpu_torch.models.ssd import SSD
+
+    images = np.random.default_rng(80).integers(0, 256, (N_IMAGES, IMSIZE, IMSIZE, 3), dtype=np.uint8)
+    n_batches = -(-N_IMAGES // BATCH)
+    res = {}
+    for case, dtype, bn_mode, flags in (("float32", "float32", "batch", []),
+                                        ("trunk_int8", "bfloat16", "running", ["--trunk_int8"])):
+        result = tmp / f"eval_{case}"
+        model = SSD(num_classes=21, dtype=getattr(torch, dtype), seed=0)
+        if flags:
+            scales = quant.calibrate_trunk(model.to(DEVICE), [images[:BATCH]], use_batch_stats=False, margin=1.25)
+            (result / "detection").mkdir(parents=True)
+            quant.save_quant(result / "detection" / "quant.json", scales)
+            model.set_quant(scales)
+            model.trunk_int8 = True
+        gts = plant_gts(Predictor(model, imsize=IMSIZE, batch_size=BATCH, use_batch_stats=bn_mode == "batch")
+                        .predict(images))
+        write_records(tmp / f"records_{case}", images, gts)
+        argv = ["--records_dir", str(tmp / f"records_{case}"), "--result_dir", str(result), "--batch_size", str(BATCH),
+                "--imsize", str(IMSIZE), "--dtype", dtype, "--bn_mode", bn_mode, "--strict_ap", *flags]
+        single = evaluate.main(argv)
+        t0 = time.perf_counter()
+        ranks = run_ranks(DP_EVAL_RANK, argv + ["--distributed", "--dist_backend", "gloo"], DP_WORLD, tmp)
+        wall_s = time.perf_counter() - t0
+        for r, got in enumerate(ranks):
+            if got["mean_ap"] != single[1] or not abs(single[1] - 1.0) <= 1e-6:
+                raise AssertionError(f"{case}: rank {r}'s parity mAP {got['mean_ap']!r}, one process's {single[1]!r} "
+                                     "(planted ground truth: 1.0)")
+            want = {"nms": n_batches, **({"int8_conv": 11 * n_batches, "quantize_act": 11 * n_batches} if flags
+                                         else {})}
+            if any(got[k] != v for k, v in want.items()):
+                raise AssertionError(f"{case}: rank {r}'s launches {got}, expected {want}")
+        res[case] = {"mean_ap": ranks[0]["mean_ap"], "strict_ap": ranks[0]["strict_ap"],
+                     "single_strict_ap": single[2], "wall_s": wall_s,
+                     "launches": [{k: got[k] for k in ("nms", "int8_conv", "quantize_act")} for got in ranks]}
+        print(f"data parallel, cli.evaluate --distributed, 2 gloo ranks on one card, {case} ({bn_mode} statistics), "
+              f"{N_IMAGES} records at batch {BATCH} (rank 1's last slice empty): parity mAP {ranks[0]['mean_ap']} on "
+              f"both ranks = one process's; strict {ranks[0]['strict_ap']:.6f} (one process {single[2]:.6f}); "
+              f"launches per rank {res[case]['launches']}; {wall_s:.1f} s with the ranks' start-up ({card})")
+    return res
+
+
+def phase_data_parallel(card: str) -> dict:
+    """Data parallelism (parallel/mesh.py) on the one card: NCCL at world
+    size 1 (the card has no second device, and NCCL refuses two ranks on one
+    GPU), then 2 gloo ranks on the card (gloo's collectives take CUDA
+    tensors) for the Trainer and the evaluate CLI."""
+    import os
+
+    saved = {k: os.environ.get(k) for k in torchrun_env(0, 1, 0)}
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            tmp = Path(tmp)
+            res = {"nccl_world1": dp_nccl_world1(card, tmp)}
+            res["gloo_trainer"] = dp_gloo_trainer(card)
+            res["gloo_evaluate"] = dp_gloo_evaluate(card, tmp)
+    finally:  # torchrun's variables as they were
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    return res
+
+
+def dp_launches(dp: dict) -> dict:
+    """Each kernel's launches on the data-parallel paths, summed over ranks."""
+    ev = dp["gloo_evaluate"]
+    return {"conv12": sum(dp["gloo_trainer"]["float32"]["conv12_launches"]),
+            "conv12_bf16": dp["nccl_world1"]["cli"]["conv12_launches"]
+            + sum(dp["gloo_trainer"]["bfloat16"]["conv12_launches"]),
+            "nms_keep_sorted": sum(r["nms"] for case in ev.values() for r in case["launches"]),
+            "int8_conv": sum(r["int8_conv"] for r in ev["trunk_int8"]["launches"]),
+            "quantize_act": sum(r["quantize_act"] for r in ev["trunk_int8"]["launches"])}
+
+
 def int8_entry(r: dict) -> dict:
     """The kernels-line entry of int8_conv: times summed over the 11 layers
     of blocks 2-5 at batch 32 (the --trunk_int8 main path) in the top-level
@@ -2216,6 +2588,13 @@ def main(argv=None) -> int:
     results["int8"] = phase_int8(card)
     entries.append(int8_entry(results["int8"]))
     entries.append(quantize_entry(results["int8"]))
+    results["data_parallel"] = phase_data_parallel(card)
+    dp = dp_launches(results["data_parallel"])
+    for entry, n in ((entries[0], dp["nms_keep_sorted"]), (entries[1], dp["conv12"]),
+                     (entries[1]["bfloat16"], dp["conv12_bf16"]), (entries[2], dp["int8_conv"]),
+                     (entries[3], dp["quantize_act"])):
+        entry["launches_by_path"]["data_parallel"] = n
+        entry["launches"] += n
     results["kernels"] = entries
     if args.out:
         args.out.parent.mkdir(parents=True, exist_ok=True)

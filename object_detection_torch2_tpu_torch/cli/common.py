@@ -1,11 +1,19 @@
 """Shared CLI plumbing for the port's entry points
 (counterpart of object_detection_torch2_tpu/cli/common.py:24-241).
 
-The flags and their defaults are the JAX package's. Options whose code is not
-ported yet raise NotImplementedError naming their ROADMAP item: multi-process
-serving (`--distributed`) and a data-parallel mesh (`--num_devices` above 1)
-wait for Queue 1 G2. The JAX package's persistent XLA compile cache has no
-counterpart.
+The flags and their defaults are the JAX package's. The JAX package's
+persistent XLA compile cache has no counterpart.
+
+Data parallelism (`run_data_parallel`; parallel/mesh.py), one process a
+device: `--distributed` joins the process group torchrun's environment
+describes (it raises without it); `--num_devices N` without it starts N local
+processes itself, rank r on cuda:r (at most the cards present, with a
+printed note) or, with `--device cpu`, N gloo processes on the CPU (the
+counterpart of the JAX tests' virtual CPU devices). The default is every
+CUDA card, as the JAX package's mesh takes every device, and one process on
+the CPU. `--dist_backend gloo` puts the collectives on gloo on the card too
+(several ranks on one card, where NCCL refuses a duplicate GPU). A rank that
+fails ends the others, and the run raises.
 
 Int8 serving (`apply_int8`): `--trunk_int8` reads the scales the training CLI
 calibrated, `<result_dir>/detection/quant.json`; `--full_int8` (which takes
@@ -15,7 +23,8 @@ writes it. Both files have the JAX package's format. The calibration batches
 are read by index on the host (`calib_image_batches`: the first
 `calib_batches x batch_size` images, in order, the ones the JAX package's
 unshuffled loader yields first), not through the threaded DataLoader, and a
-run calibrates once.
+run calibrates once: under several processes rank 0 calibrates and writes
+the file, and the others wait at a barrier and load it.
 """
 
 from __future__ import annotations
@@ -25,6 +34,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from object_detection_torch2_tpu_torch import resolve_device
 from object_detection_torch2_tpu_torch.data.labelmap import LabelMap
 from object_detection_torch2_tpu_torch.models.convert import (
     jax_variables_from_state_dict,
@@ -33,6 +43,7 @@ from object_detection_torch2_tpu_torch.models.convert import (
     ssd_trunk_from_vgg16_variables,
 )
 from object_detection_torch2_tpu_torch.models.ssd import SSD
+from object_detection_torch2_tpu_torch.parallel.mesh import barrier, init_distributed, launch, shutdown
 from object_detection_torch2_tpu_torch.train import checkpoint as ckpt
 
 # reference data roots were hardcoded (reference: train.py:43, 50); here they
@@ -57,7 +68,12 @@ def add_common_args(parser, batch_size_default: int):
     parser.add_argument("--dtype", type=str, choices=list(DTYPES), default="bfloat16")
     parser.add_argument("--max_gt", type=int, default=64)
     parser.add_argument("--num_devices", type=int, default=None,
-                        help="data-parallel devices; above 1 is not ported yet (ROADMAP Queue 1 G2)")
+                        help="data-parallel devices, one process each (rank r on cuda:r; with --device cpu, N "
+                             "gloo processes); default every CUDA card, one process on the CPU. Under "
+                             "--distributed it must equal the world size")
+    parser.add_argument("--dist_backend", choices=["nccl", "gloo"], default=None,
+                        help="collectives' backend: default NCCL on the card, gloo on the CPU; gloo lets "
+                             "several ranks share one card")
     parser.add_argument(
         "--bn_mode",
         choices=["batch", "running"],
@@ -82,24 +98,105 @@ def add_serving_args(parser):
     parser.add_argument("--calib_margin", type=float, default=1.25,
                         help="headroom factor on --full_int8 calibrated abs-maxes")
     parser.add_argument("--distributed", action="store_true",
-                        help="multi-process data-parallel serving; not ported yet (ROADMAP Queue 1 G2)")
+                        help="multi-process data-parallel serving: join the process group of torchrun's "
+                             "environment (RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR, MASTER_PORT); each "
+                             "process loads and runs its slice of every batch; the eval metrics are "
+                             "all-gathered at the end (metrics/ap.py merge_accumulators_across_processes)")
 
 
 def init_serving_distributed(args):
-    """(process_index, process_count) of a serving run: one process.
-    `--distributed` raises until the scale-out slice."""
-    if getattr(args, "distributed", False):
-        raise NotImplementedError("--distributed: multi-process serving is not ported yet (ROADMAP Queue 1 G2)")
-    return 0, 1
+    """`--distributed` (all three CLIs): join torchrun's process group ->
+    this process's Mesh (raises without the environment); else None."""
+    if not getattr(args, "distributed", False):
+        return None
+    return init_distributed(args.dist_backend, args.device)
 
 
-def serving_mesh(args):
-    """The serving CLIs' data-parallel mesh: none, one device. `--num_devices`
-    above 1 raises until the scale-out slice."""
-    if args.num_devices is not None and args.num_devices > 1:
-        raise NotImplementedError(f"--num_devices {args.num_devices}: data-parallel serving is not ported yet "
-                                  "(ROADMAP Queue 1 G2)")
-    return None
+def _devices_present(args) -> int:
+    """Devices a run may take: the CUDA cards, or on the CPU as many gloo
+    processes as --num_devices asks (default one)."""
+    if resolve_device(args.device).type == "cuda":
+        return torch.cuda.device_count()
+    return args.num_devices or 1
+
+
+def serving_mesh(args, mesh=None) -> int:
+    """The serving CLIs' data-parallel world size, by the JAX package's rules
+    (its cli/common.py:81-124).
+
+    --distributed (`mesh` given): the mesh spans every rank: --num_devices
+    must equal the world size and --batch_size must divide over it (equal
+    per-process slices; no quiet reduction). Otherwise: every device present
+    by default, capped by --num_devices, reduced to the largest count that
+    divides --batch_size, with a printed note when reduced."""
+    if mesh is not None:
+        n = args.num_devices or mesh.world
+        if n != mesh.world:
+            raise ValueError(f"--num_devices {n} unsupported with --distributed (global mesh "
+                             f"uses all {mesh.world} devices)")
+        if args.batch_size % mesh.world:
+            raise ValueError(f"--distributed: batch_size {args.batch_size} must divide over "
+                             f"all {mesh.world} global devices")
+        return mesh.world
+    avail = _devices_present(args)
+    n = min(args.num_devices or avail, avail)
+    while args.batch_size % n:
+        n -= 1
+    if n < min(args.num_devices or avail, avail):
+        print(f"note: serving on {n} device(s) — batch_size {args.batch_size} "
+              f"does not divide over {args.num_devices or avail}")
+    return n
+
+
+def train_world(args, mesh=None) -> int:
+    """The training CLI's data-parallel world size: the mesh's under
+    --distributed (--num_devices must equal it), else --num_devices (default
+    every device present) capped at the devices present, with a printed note,
+    as the JAX package's `make_mesh(num_devices)` takes `devices[:n]`. The
+    global batch must divide over it (the JAX CLI's check)."""
+    if mesh is not None:
+        n = args.num_devices or mesh.world
+        if n != mesh.world:
+            raise ValueError(f"--num_devices {n} unsupported with --distributed (global mesh "
+                             f"uses all {mesh.world} devices)")
+    else:
+        avail = _devices_present(args)
+        n = min(args.num_devices or avail, avail)
+        if n < (args.num_devices or avail):
+            print(f"note: training on {n} device(s) — --num_devices {args.num_devices}, "
+                  f"{avail} present")
+    if args.batch_size % n:
+        raise ValueError(f"batch_size {args.batch_size} must divide over {n} devices")
+    return n
+
+
+def _rank_main(mesh, fn, args, drop):
+    """One launched rank: fn(args, mesh), less the keys in `drop` (results
+    that do not cross processes)."""
+    result = fn(args, mesh)
+    if isinstance(result, dict):
+        result = {k: v for k, v in result.items() if k not in drop}
+    return result
+
+
+def run_data_parallel(args, fn, world_of, drop=()):
+    """fn(args, mesh) as the flags ask: under --distributed once in this
+    process with torchrun's mesh (the process group left at the end); with
+    a world size (`world_of(args)`) above 1, in that many launched local
+    processes, returning rank 0's result less the keys in `drop`; else once
+    in this process with no mesh."""
+    mesh = init_serving_distributed(args)
+    if mesh is not None:
+        try:
+            world_of(args, mesh)
+            return fn(args, mesh)
+        finally:
+            shutdown()
+    device = resolve_device(args.device)
+    world = world_of(args)
+    if world == 1:
+        return fn(args, None)
+    return launch(_rank_main, world, (fn, args, tuple(drop)), device_type=device.type, backend=args.dist_backend)[0]
 
 
 def calib_image_batches(dataset, n_batches: int, batch_size: int):
@@ -133,12 +230,15 @@ def apply_trunk_int8(args, model):
     return model
 
 
-def apply_full_int8(args, model, batches, device):
+def apply_full_int8(args, model, batches, device, mesh=None):
     """Serving-side --full_int8: the model on the full int8 path (trunk,
     extras, heads) with scales read from <result_dir>/detection/
     quant_full.json when it is there and complete, else calibrated over
     `batches` (uint8 image batches of the run's own dataset) on `device`
-    and written there. The model ends on `device`."""
+    and written there. The model ends on `device`. Under a mesh of several
+    ranks, rank 0 does that (with its model not yet on the mesh: the
+    calibration is one process's) while the others wait at a barrier, then
+    load the file."""
     import json
 
     from object_detection_torch2_tpu_torch.models.quant import (
@@ -150,31 +250,36 @@ def apply_full_int8(args, model, batches, device):
 
     qp = Path(args.result_dir) / "detection" / "quant_full.json"
     scales = None
-    if qp.exists():
-        scales = json.loads(qp.read_text())
-        stale = missing_layers(scales, FULL_QUANT_LAYERS)
-        if stale:
-            print(f"quant_full.json is stale (no amax for {stale}) — recalibrating")
-            scales = None
-        else:
-            print("full-int8 scales loaded.")
     model.to(device)
-    if scales is None:
-        scales = calibrate_full(model, batches, margin=args.calib_margin)
-        qp.parent.mkdir(parents=True, exist_ok=True)
-        save_quant(qp, scales)
-        print(f"full-int8 scales calibrated ({args.calib_batches} batches, margin {args.calib_margin}) -> {qp}")
+    if mesh is None or mesh.rank == 0:
+        if qp.exists():
+            scales = json.loads(qp.read_text())
+            stale = missing_layers(scales, FULL_QUANT_LAYERS)
+            if stale:
+                print(f"quant_full.json is stale (no amax for {stale}) — recalibrating")
+                scales = None
+            else:
+                print("full-int8 scales loaded.")
+        if scales is None:
+            scales = calibrate_full(model, batches, margin=args.calib_margin)
+            qp.parent.mkdir(parents=True, exist_ok=True)
+            save_quant(qp, scales)
+            print(f"full-int8 scales calibrated ({args.calib_batches} batches, margin {args.calib_margin}) -> {qp}")
+    barrier(mesh)
+    if scales is None:  # a rank other than 0: rank 0's file
+        scales = json.loads(qp.read_text())
     model.set_quant(scales)
     model.full_int8 = True
     return model
 
 
-def apply_int8(args, model, dataset, device):
+def apply_int8(args, model, dataset, device, mesh=None):
     """--full_int8 (which takes precedence) or --trunk_int8 on `model`, or
-    nothing; `dataset` gives --full_int8's calibration batches."""
+    nothing; `dataset` gives --full_int8's calibration batches (the global
+    batches: rank 0 calibrates under a mesh)."""
     if getattr(args, "full_int8", False):
         return apply_full_int8(args, model, calib_image_batches(dataset, args.calib_batches, args.batch_size),
-                               device)
+                               device, mesh)
     if getattr(args, "trunk_int8", False):
         return apply_trunk_int8(args, model)
     return model

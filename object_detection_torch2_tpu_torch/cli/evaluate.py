@@ -25,8 +25,17 @@ would) and brings their matches back in one copy; the batches left over at
 the end run one at a time. `--d2h_half` copies the largest leaf, the match
 scores, as float16 (`correct` is already bool). `--trunk_int8` and
 `--full_int8` serve the model on its int8 paths (`cli.common.apply_int8`;
-the int8 kernel on the card). Not ported yet: multi-process evaluation
-(ROADMAP Queue 1 G2).
+the int8 kernel on the card).
+
+Several processes (`--distributed`, or `--num_devices N`: cli.common's
+`run_data_parallel`; the JAX CLI's loop, its cli/evaluate.py:125-240): each
+process reads its contiguous slice of every global batch (the loader),
+pads it to batch_size // world rows, runs it with the GLOBAL real count of
+the batch (BatchNorm statistics over the global masked batch; the NMS kernel
+on its own rows), accumulates its rows' matches, and the accumulators are
+all-gathered at the end; rank 0 prints and writes the report. A process
+whose final slice is empty still runs its pad rows: every process joins
+every collective.
 """
 
 from __future__ import annotations
@@ -43,7 +52,7 @@ from object_detection_torch2_tpu_torch.data.loader import DataLoader
 from object_detection_torch2_tpu_torch.data.records import RecordDataset
 from object_detection_torch2_tpu_torch.data.voc import PascalVOCDataset
 from object_detection_torch2_tpu_torch.infer import build_detection_pipeline
-from object_detection_torch2_tpu_torch.metrics.ap import APAccumulator
+from object_detection_torch2_tpu_torch.metrics.ap import APAccumulator, merge_accumulators_across_processes
 from object_detection_torch2_tpu_torch.metrics.assign import detection_matches
 from object_detection_torch2_tpu_torch.ops.scores import expand_detections
 from object_detection_torch2_tpu_torch.utils.hostsync import FetchPipeline
@@ -71,7 +80,7 @@ def parse_args(argv=None):
 
 
 def build_eval_pipeline(model, use_batch_stats: bool, imsize: int, num_classes: int,
-                        max_detections: int = 200, device=None, d2h_half: bool = False):
+                        max_detections: int = 200, device=None, d2h_half: bool = False, mesh=None):
     """-> run(images_u8 (N, H, W, 3) uint8, gts (N, G, 4 + 21), n_real) ->
     (detection_matches dict at K = max_detections rows, n_valid (N,)), both
     on `device`.
@@ -85,15 +94,24 @@ def build_eval_pipeline(model, use_batch_stats: bool, imsize: int, num_classes: 
     run also takes K stacked batches — images (K, N, H, W, 3), gts
     (K, N, G, 25), n_real (K,) — each with its own batch statistics, and
     returns the results with a leading K axis. d2h_half casts the matches'
-    `scores` to float16 on the device."""
+    `scores` to float16 on the device.
+
+    mesh: a parallel.mesh.Mesh: run takes this rank's slice of each global
+    batch and the global n_real (infer.build_detection_pipeline), on the
+    mesh's device by default."""
+    if mesh is not None and device is None:
+        device = mesh.device
     device = resolve_device(device)
-    detect = build_detection_pipeline(model, use_batch_stats, imsize, max_detections=max_detections, device=device)
+    detect = build_detection_pipeline(model, use_batch_stats, imsize, max_detections=max_detections, device=device,
+                                      mesh=mesh)
+    rank = 0 if mesh is None else mesh.rank
 
     def body(images_u8, gts, n_real):
         packed, n_valid = detect(images_u8, n_real)
         boxes, classes, scores = packed[..., :4], packed[..., 4].to(torch.int64), packed[..., 5]
         compact = expand_detections(boxes, classes, scores, num_classes + 1)
-        mask = (torch.arange(gts.shape[0], device=device) < n_real).to(gts.dtype)
+        n = gts.shape[0]
+        mask = (torch.arange(n, device=device) + rank * n < n_real).to(gts.dtype)
         matches = detection_matches(compact, gts * mask[:, None, None], num_classes=num_classes)
         if d2h_half:
             matches = {**matches, "scores": matches["scores"].to(torch.float16)}
@@ -112,13 +130,20 @@ def build_eval_pipeline(model, use_batch_stats: bool, imsize: int, num_classes: 
 
 
 def accumulate(run, loader, batch_size: int, num_classes: int, max_detections: int,
-               batches_per_dispatch: int = 1, fetch_depth: int = 2):
+               batches_per_dispatch: int = 1, fetch_depth: int = 2, world: int = 1, progress: bool = True):
     """Every batch of `loader` through `run`, a ragged final batch padded to
     `batch_size` (repeat-last rows, masked by n_real), K = batches_per_dispatch
     batches a call (the last < K one at a time), each call's results fetched
     `fetch_depth` calls later -> (APAccumulator, True if some image had more
-    than max_detections survivors)."""
+    than max_detections survivors).
+
+    With `world` processes the loader yields this process's slice of each
+    global batch of `batch_size`: it is padded to batch_size // world rows
+    (zeros when empty), and n_real is the global batch's real count, from
+    the loader's deterministic order (unshuffled, drop_last=False)."""
     acc = APAccumulator(num_classes)
+    local_bs = batch_size // world
+    remaining = len(loader.dataset) if world > 1 else None
     truncated = False
     pipe = FetchPipeline(fetch_depth)
     group: list = []
@@ -133,14 +158,18 @@ def accumulate(run, loader, batch_size: int, num_classes: int, max_detections: i
         truncated |= int(n_valid.max()) > max_detections
 
     for i, (images_u8, gts) in enumerate(loader, start=1):
-        real = images_u8.shape[0]
-        group.append((common.pad_rows(np.asarray(images_u8), batch_size),
-                      common.pad_rows(np.asarray(gts, np.float32), batch_size), real))
+        if world == 1:
+            real = images_u8.shape[0]
+        else:
+            real = min(batch_size, remaining)
+            remaining -= real
+        group.append((common.pad_rows(np.asarray(images_u8), local_bs),
+                      common.pad_rows(np.asarray(gts, np.float32), local_bs), real))
         if len(group) == batches_per_dispatch:
             drain(pipe.push(run(np.stack([g[0] for g in group]), np.stack([g[1] for g in group]),
                                 [g[2] for g in group])))
             group = []
-        if i % PROGRESS_EVERY == 0 or i == len(loader):
+        if progress and (i % PROGRESS_EVERY == 0 or i == len(loader)):
             print(f"evaluate: batch {i}/{len(loader)}", flush=True)
     for images_u8, gts, real in group:  # leftover batches (< K), one at a time
         matches, n_valid = run(images_u8, gts, real)
@@ -151,12 +180,19 @@ def accumulate(run, loader, batch_size: int, num_classes: int, max_detections: i
 
 
 def main(argv=None):
+    """Evaluate; returns (aps, mean_ap, strict_mean, strict_aps), on every
+    process the same (a launched run returns rank 0's)."""
     args = parse_args(argv)
     if args.batches_per_dispatch < 1:
         raise SystemExit(f"--batches_per_dispatch must be >= 1, got {args.batches_per_dispatch}")
-    common.init_serving_distributed(args)
-    common.serving_mesh(args)
-    device = resolve_device(args.device)
+    return common.run_data_parallel(args, _main, common.serving_mesh)
+
+
+def _main(args, mesh):
+    """The evaluation on one process: the whole run (`mesh` None) or this
+    rank's part of it."""
+    device = mesh.device if mesh is not None else resolve_device(args.device)
+    rank, world = (0, 1) if mesh is None else (mesh.rank, mesh.world)
     out_dir = Path(args.result_dir) / "detection"
 
     if args.records_dir:
@@ -169,28 +205,31 @@ def main(argv=None):
                         num_workers=args.num_workers)
     try:
         model, labelmap = common.build_ssd(args, out_dir / args.weights)
-        model = common.apply_int8(args, model, dataset, device)
+        model = common.apply_int8(args, model, dataset, device, mesh)
         num_classes = len(labelmap)
         run = build_eval_pipeline(model, args.bn_mode == "batch", args.imsize, num_classes,
-                                  args.max_detections, device=device, d2h_half=args.d2h_half)
+                                  args.max_detections, device=device, d2h_half=args.d2h_half, mesh=mesh)
         acc, truncated = accumulate(run, loader, args.batch_size, num_classes, args.max_detections,
-                                    args.batches_per_dispatch)
+                                    args.batches_per_dispatch, world=world, progress=rank == 0)
     finally:
         loader.close()
     if truncated:
         print(f"warning: >{args.max_detections} post-NMS detections in a batch; "
               "lowest-scored were dropped (raise --max_detections)")
+    # every process then computes the same global result
+    acc = merge_accumulators_across_processes(acc, mesh)
 
     aps, mean_ap = acc.result(strict=False)
     strict_mean = strict_aps = None
     if args.strict_ap:
         strict_aps, strict_mean = acc.result(strict=True)
-    print("mAP (reference parity metric):", round(mean_ap, 4))
-    if strict_mean is not None:
-        print("mAP (strict, score-ranked):", round(strict_mean, 4))
-    path = write_report(out_dir, vars(args), aps, mean_ap, labelmap, device=device)
-    print("report:", path)
-    print("Finished Evaluate")
+    if rank == 0:
+        print("mAP (reference parity metric):", round(mean_ap, 4))
+        if strict_mean is not None:
+            print("mAP (strict, score-ranked):", round(strict_mean, 4))
+        path = write_report(out_dir, vars(args), aps, mean_ap, labelmap, device=device)
+        print("report:", path)
+        print("Finished Evaluate")
     return aps, mean_ap, strict_mean, strict_aps
 
 

@@ -25,8 +25,15 @@ at a time. `--d2h_half` copies the packed rows as float16 (~5e-4 relative,
 weights as `torch.export` programs for `--export_platforms` (serving.py) and
 exits. `--trunk_int8` and `--full_int8` serve the model on its int8 paths
 (`cli.common.apply_int8`; the int8 kernel on the card), the export included:
-the exported program then holds the int8 op's calls. Not ported yet:
-multi-process inference (ROADMAP Queue 1 G2).
+the exported program then holds the int8 op's calls.
+
+Several processes (`--distributed`, or `--num_devices N`: cli.common's
+`run_data_parallel`; the JAX CLI's loop, its cli/inference.py:62-160): each
+process reads its contiguous slice of every global batch, pads it to
+batch_size // world rows, runs it with the global batch's real count, and
+renders and writes the PNGs of its own rows, numbered by their global index.
+`--export_pipeline` writes one single-device artifact and runs in one
+process: with several it raises.
 """
 
 from __future__ import annotations
@@ -89,13 +96,23 @@ def main(argv=None) -> dict:
     args = parse_args(argv)
     if args.batches_per_dispatch < 1:
         raise SystemExit(f"--batches_per_dispatch must be >= 1, got {args.batches_per_dispatch}")
-    common.init_serving_distributed(args)
-    common.serving_mesh(args)
-    out_dir = Path(args.result_dir) / "detection"
     if args.export_pipeline:
+        if args.distributed or (args.num_devices or 1) > 1:
+            raise ValueError("--export_pipeline writes one single-device artifact: run it in one process "
+                             "(without --distributed, --num_devices 1)")
         return {"export": _export(args)}
-    device = resolve_device(args.device)
     require_pil()
+    return common.run_data_parallel(args, _main, common.serving_mesh)
+
+
+def _main(args, mesh) -> dict:
+    """The inference on one process: the whole run (`mesh` None) or this
+    rank's part of it (its rows' PNGs; a launched run returns rank 0's
+    paths)."""
+    out_dir = Path(args.result_dir) / "detection"
+    device = mesh.device if mesh is not None else resolve_device(args.device)
+    rank, world = (0, 1) if mesh is None else (mesh.rank, mesh.world)
+    local_bs = args.batch_size // world
     dataset = _dataset(args)
 
     loader = DataLoader(dataset, args.batch_size, max_gt=args.max_gt, drop_last=False,
@@ -106,9 +123,10 @@ def main(argv=None) -> dict:
     group: list = []
     try:
         model, labelmap = common.build_ssd(args, out_dir / args.weights)
-        model = common.apply_int8(args, model, dataset, device)
+        model = common.apply_int8(args, model, dataset, device, mesh)
         run = build_detection_pipeline(model, args.bn_mode == "batch", args.imsize,
-                                       max_detections=args.max_detections, device=device, d2h_half=args.d2h_half)
+                                       max_detections=args.max_detections, device=device, d2h_half=args.d2h_half,
+                                       mesh=mesh)
         palette = hls_palette(len(labelmap) + 1)
 
         def drain(done, t0):
@@ -129,20 +147,21 @@ def main(argv=None) -> dict:
             batch_s.append(t1 - t0)
 
         def dispatch(items):
-            """One call over the padded batches of `items` [(images, padded, base)]."""
+            """One call over the padded batches of `items` [(images, padded, base, real)]."""
             t0 = time.perf_counter()
-            packed, n_valid = run(np.stack([it[1] for it in items]), [len(it[0]) for it in items])
+            packed, n_valid = run(np.stack([it[1] for it in items]), [it[3] for it in items])
             drain(pipe.push(([it[0] for it in items], packed, n_valid, [it[2] for it in items])), t0)
 
-        base = 0  # images in previous batches: output numbering is global
+        n = len(dataset)
         for b, (images_u8, _) in enumerate(loader, start=1):
             images_u8 = np.asarray(images_u8)
-            group.append((images_u8, common.pad_rows(images_u8, args.batch_size), base))
-            base += images_u8.shape[0]
+            start = (b - 1) * args.batch_size  # output numbering is global
+            real = min(args.batch_size, n - start)
+            group.append((images_u8, common.pad_rows(images_u8, local_bs), start + rank * local_bs, real))
             if len(group) == args.batches_per_dispatch:
                 dispatch(group)
                 group = []
-            if b % PROGRESS_EVERY == 0 or b == len(loader):
+            if rank == 0 and (b % PROGRESS_EVERY == 0 or b == len(loader)):
                 print(f"inference: batch {b}/{len(loader)}", flush=True)
         for item in group:  # leftover batches (< K), one at a time
             dispatch([item])
@@ -153,7 +172,8 @@ def main(argv=None) -> dict:
     if truncated:
         print(f"warning: >{args.max_detections} post-NMS detections in a batch; "
               "lowest-scored were dropped (raise --max_detections)")
-    print("Finished Inference")
+    if rank == 0:
+        print("Finished Inference")
     return {"paths": paths, "batch_s": batch_s, "render_s": render_s}
 
 

@@ -55,9 +55,21 @@ the train augment applied (`_quant_scales`), and written for the serving
 CLIs.
 
 The run is on the CUDA card unless `--device cpu` is given; without a card it
-raises. Not ported (they raise NotImplementedError naming their ROADMAP
-Queue 1 item): `--distributed` and `--num_devices` above 1 (G2). The JAX
-CLI's tqdm bar is a progress line here.
+raises. The JAX CLI's tqdm bar is a progress line here.
+
+Data parallelism (`--distributed` with torchrun's environment, or
+`--num_devices N`, which starts N local processes: cli.common's
+`run_data_parallel`): each rank reads its contiguous slice of every global
+batch of `--batch_size` (which must divide over the ranks), and
+`Trainer(mesh=)` takes the global batch's step (global augment draws, sync
+BatchNorm, one gradient all-reduce, Adam on every rank). Rank 0 alone
+writes the weights file, params.json, the event file, phase_times.json and
+the full state, the same bytes as one process's run, while the others wait
+at a barrier: ranks on one host share a disk, and two writers of one file
+would race (the JAX CLI writes from every process). A resume reads the full
+state on every rank. With `--trunk_int8`, rank 0 calibrates (or loads) the
+scales and writes quant.json, and the others load it after a barrier.
+A launched run returns rank 0's result without its `state`.
 """
 
 from __future__ import annotations
@@ -77,6 +89,7 @@ from object_detection_torch2_tpu_torch.data.records import RecordDataset
 from object_detection_torch2_tpu_torch.data.voc import PascalVOCDataset
 from object_detection_torch2_tpu_torch.models.convert import vgg16_state_dict_from_jax_variables
 from object_detection_torch2_tpu_torch.models.vgg16 import VGG16, vgg_trainable_predicate
+from object_detection_torch2_tpu_torch.parallel.mesh import barrier
 from object_detection_torch2_tpu_torch.train import checkpoint as ckpt
 from object_detection_torch2_tpu_torch.train.optimizer import adam_torch, exponential_epoch_schedule
 from object_detection_torch2_tpu_torch.train.trainer import Trainer
@@ -128,7 +141,9 @@ def parse_args(argv=None):
                         help="write checkpoints at most every N epochs (and always on the last); "
                              "improvement is tracked every epoch")
     parser.add_argument("--distributed", action="store_true",
-                        help="multi-process data-parallel training; not ported yet (ROADMAP Queue 1 G2)")
+                        help="multi-process data-parallel training: join the process group of torchrun's "
+                             "environment (RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR, MASTER_PORT); each "
+                             "process loads its slice of every global batch")
     parser.add_argument("--device_cache", action="store_true",
                         help="hold the packed records (train and validation) on the device and gather "
                              "each batch there (data/device_cache.py); needs --records_dir, one process")
@@ -192,7 +207,7 @@ def _aug_config(train_aug: str):
     return {"train": True, "none": False, "reduced_hue": {"hue": 0.05}}[train_aug]
 
 
-def _quant_scales(args, model, ds_train, device) -> dict:
+def _quant_scales(args, model, ds_train, device, mesh=None) -> dict:
     """Int8 trunk activation scales: <result_dir>/<purpose>/quant.json when it
     is there and complete, else abs-max calibration of `model` on `device`
     over the first --calib_batches batches read by index from `ds_train` (on
@@ -202,7 +217,16 @@ def _quant_scales(args, model, ds_train, device) -> dict:
     The calibration batches get the train step's augment (--train_aug, in the
     model's dtype), its draws from a generator seeded with seed ^ 0xCA11B,
     so the abs-maxes cover the distribution the int8 path quantizes; GT
-    boxes are zeros (they only ride through the flip)."""
+    boxes are zeros (they only ride through the flip).
+
+    Under a mesh of several ranks rank 0 does that (one process's
+    calibration, on the global batches) while the others wait at a barrier,
+    then every rank reads the file, so all hold the same scales."""
+    if mesh is not None and mesh.world > 1:
+        if mesh.rank == 0:
+            _quant_scales(args, model, ds_train, device)
+        barrier(mesh)
+        return json.loads((Path(args.result_dir) / args.purpose / "quant.json").read_text())
     from object_detection_torch2_tpu_torch.data.augment import augment_batch
     from object_detection_torch2_tpu_torch.models import quant as quant_lib
 
@@ -255,7 +279,7 @@ def _build_datasets(args):
     return ds_train, ds_val
 
 
-def _check_unported(args):
+def _check_flags(args):
     if args.device_cache and (args.distributed or not args.records_dir):
         raise SystemExit("--device_cache requires --records_dir and is single-process "
                          "(incompatible with --distributed)")
@@ -263,34 +287,36 @@ def _check_unported(args):
         raise SystemExit("--trunk_int8 requires a frozen trunk (drop --train_trunk)")
     if args.trunk_int8 and args.purpose != "detection":
         raise SystemExit("--trunk_int8 is for the detection purpose")
-    if args.distributed:
-        raise NotImplementedError("--distributed: multi-process training is not ported yet (ROADMAP Queue 1 G2)")
-    if args.num_devices is not None and args.num_devices > 1:
-        raise NotImplementedError(f"--num_devices {args.num_devices}: data-parallel training is not ported yet "
-                                  "(ROADMAP Queue 1 G2)")
 
 
 def main(argv=None) -> dict:
     """Train; returns {"state": the TrainState, "losses": [(steps,) tensor
     of each epoch's step losses], "val_losses": [each epoch's validation
-    loss], "phase_times": the rows of phase_times.json}."""
+    loss], "phase_times": the rows of phase_times.json} (a launched run:
+    rank 0's, without "state")."""
     args = parse_args(argv)
-    _check_unported(args)
-    device = resolve_device(args.device)
+    _check_flags(args)
+    return common.run_data_parallel(args, _main, common.train_world, drop=("state",))
+
+
+def _main(args, mesh) -> dict:
+    """The training on one process: the whole run (`mesh` None) or this
+    rank's part of it."""
+    device = mesh.device if mesh is not None else resolve_device(args.device)
     if args.debug_nans:
         enable_debug_nans()
     ds_train, ds_val = _build_datasets(args)
     cache = {"device_cache": args.device_cache, "device": device}
-    dl_train = DataLoader(ds_train, args.batch_size, shuffle=True, seed=args.seed, max_gt=args.max_gt,
+    dl_train = DataLoader(ds_train, args.batch_size, shuffle=True, seed=args.seed, max_gt=args.max_gt, mesh=mesh,
                           num_workers=args.num_workers, stack_steps=args.steps_per_dispatch, **cache)
-    dl_val = (DataLoader(ds_val, args.batch_size, max_gt=args.max_gt, num_workers=args.num_workers, **cache)
-              if ds_val else None)
+    dl_val = (DataLoader(ds_val, args.batch_size, max_gt=args.max_gt, mesh=mesh, num_workers=args.num_workers,
+                         **cache) if ds_val else None)
     # an exact resume on the card needs cuDNN's deterministic algorithms
     deterministic = torch.backends.cudnn.deterministic
     if args.orbax_dir:
         torch.backends.cudnn.deterministic = True
     try:
-        return _train(args, device, dl_train, dl_val)
+        return _train(args, device, dl_train, dl_val, mesh)
     finally:
         torch.backends.cudnn.deterministic = deterministic
         dl_train.close()
@@ -298,7 +324,7 @@ def main(argv=None) -> dict:
             dl_val.close()
 
 
-def _build_trainer(args, device, weights_path: Path, ds_train):
+def _build_trainer(args, device, weights_path: Path, ds_train, mesh=None):
     """(Trainer, is_trainable) of the purpose: the SSD with a frozen trunk
     (or all of it with --train_trunk; blocks 2-5 int8 with --trunk_int8), or
     the VGG16 with its dead head frozen."""
@@ -306,11 +332,11 @@ def _build_trainer(args, device, weights_path: Path, ds_train):
         model, _ = common.build_ssd(args, weights_path, conv12_kernel=True)
         quant = None
         if args.trunk_int8:
-            quant = _quant_scales(args, model, ds_train, device)
+            quant = _quant_scales(args, model, ds_train, device, mesh)
             model.trunk_int8 = True
         trainer = Trainer(model, default_boxes=default_boxes(feature_grids_for(args.imsize)),
                           use_batch_stats=args.bn_mode == "batch", augment=_aug_config(args.train_aug),
-                          seed=args.seed, quant=quant, device=device)
+                          seed=args.seed, quant=quant, device=device, mesh=mesh)
         # reference parity: the VGG trunk is frozen (src/model/ssd.py:31-32,
         # 160-179); --train_trunk unfreezes it
         return trainer, (lambda name: True) if args.train_trunk else None
@@ -322,20 +348,33 @@ def _build_trainer(args, device, weights_path: Path, ds_train):
         print("weights loaded.")
         model.load_state_dict(vgg16_state_dict_from_jax_variables(ckpt.load_weights(weights_path)))
     trainer = Trainer(model, loss_kind="cross_entropy", use_batch_stats=args.bn_mode == "batch",
-                      augment=_aug_config(args.train_aug), seed=args.seed, device=device)
+                      augment=_aug_config(args.train_aug), seed=args.seed, device=device, mesh=mesh)
     return trainer, vgg_trainable_predicate(transfer_learning=True)
 
 
-def _train(args, device, dl_train, dl_val) -> dict:
+class _NoWriter:
+    """The event writer of a rank that writes no artifacts."""
+
+    def add_scalar(self, *args):
+        pass
+
+    def close(self):
+        pass
+
+
+def _train(args, device, dl_train, dl_val, mesh=None) -> dict:
     weights_path = Path(args.result_dir) / args.purpose / args.weights
     params_path = Path(args.result_dir) / args.purpose / args.params
-    trainer, is_trainable = _build_trainer(args, device, weights_path, dl_train.dataset)
+    # rank 0 alone writes the artifacts and prints; the others wait at barriers
+    writes = mesh is None or mesh.rank == 0
+    say = print if writes else (lambda *a, **k: None)
+    trainer, is_trainable = _build_trainer(args, device, weights_path, dl_train.dataset, mesh)
 
     # resume surface (reference: train.py:85-95; quirk Q7: fresh optimizer state)
     params = ckpt.load_params_json(params_path)
     will_orbax_resume = bool(args.orbax_dir) and ckpt.latest_orbax_step(args.orbax_dir) is not None
     if params is not None:
-        print("Params loaded.")
+        say("Params loaded.")
     min_loss, lr, start_epoch = resolve_resume(params, args.lr, will_orbax_resume, args.lr_explicit)
 
     steps_per_epoch = args.steps_per_epoch or len(dl_train)
@@ -349,22 +388,22 @@ def _train(args, device, dl_train, dl_val) -> dict:
     state = trainer.init_state(lambda ps: adam_torch(ps, schedule, weight_decay=args.weight_decay),
                                is_trainable=is_trainable)
     if args.orbax_dir and ckpt.restore_train_state(args.orbax_dir, state) is not None:
-        print("Full state restored (exact optimizer resume).")
+        say("Full state restored (exact optimizer resume).")
         # params.json (written only on improved epochs) can lag the full
         # state, which saves every --orbax_interval: the restored step count
         # numbers the epochs, with the original run's steps_per_epoch
         spe_prev = (params or {}).get("steps_per_epoch", steps_per_epoch)
         if spe_prev != steps_per_epoch:
-            print(f"warning: steps_per_epoch changed across resume "
-                  f"({spe_prev} -> {steps_per_epoch}): epoch numbering uses the "
-                  f"recorded value; the lr schedule decays at the NEW cadence")
+            say(f"warning: steps_per_epoch changed across resume "
+                f"({spe_prev} -> {steps_per_epoch}): epoch numbering uses the "
+                f"recorded value; the lr schedule decays at the NEW cadence")
         start_epoch = state.step // spe_prev
 
     # anchor the shuffle to the ABSOLUTE epoch: a resumed run draws the
     # per-epoch orders an uninterrupted run would have
     dl_train.epoch = start_epoch
 
-    writer = SummaryWriter(log_dir=args.log_dir)
+    writer = SummaryWriter(log_dir=args.log_dir) if writes else _NoWriter()
     val_rng = torch.Generator().manual_seed(args.seed + 1)
     val_loss = 0.0
     improved_since_save = False
@@ -378,7 +417,7 @@ def _train(args, device, dl_train, dl_val) -> dict:
         # the lr in effect this epoch, from the optimizer's real step count
         epoch_lr = float(schedule(state.step))
         multi = args.steps_per_dispatch > 1
-        with maybe_trace(args.profile_dir if epoch == 1 + start_epoch else None):
+        with maybe_trace(args.profile_dir if epoch == 1 + start_epoch and writes else None):
             for images, gts in dl_train:
                 if multi and images.shape[0] == args.steps_per_dispatch:
                     loss = trainer.train_steps(state, images, gts)
@@ -396,7 +435,7 @@ def _train(args, device, dl_train, dl_val) -> dict:
                     # one dispatch behind: reading it waits for the previous
                     # call, not for the one just queued
                     shown = torch.cat(losses[:-1])
-                    print(f"[{epoch}, {meter.steps}] loss: {float(shown.mean()):.4f}", flush=True)
+                    say(f"[{epoch}, {meter.steps}] loss: {float(shown.mean()):.4f}", flush=True)
                 if args.steps_per_epoch and meter.steps >= args.steps_per_epoch:
                     break
         step_losses = torch.cat(losses) if losses else torch.zeros(0)
@@ -411,8 +450,8 @@ def _train(args, device, dl_train, dl_val) -> dict:
             val_loss = float(torch.stack(batch_losses).mean()) if batch_losses else 0.0
         t_val = time.perf_counter()
 
-        print(f"[Epoch {epoch}/{last}] loss: {round(running_loss, 5)}, "
-              f"val_loss: {round(val_loss, 5)}, {images_per_sec:.1f} img/s")
+        say(f"[Epoch {epoch}/{last}] loss: {round(running_loss, 5)}, "
+            f"val_loss: {round(val_loss, 5)}, {images_per_sec:.1f} img/s")
         writer.add_scalar("loss/train", running_loss, epoch)
         writer.add_scalar("loss/validation", val_loss, epoch)
         writer.add_scalar("lr", epoch_lr, epoch)
@@ -424,14 +463,17 @@ def _train(args, device, dl_train, dl_val) -> dict:
             improved_since_save = True
         if ((epoch - start_epoch) % args.save_interval == 0 or epoch == last) and improved_since_save:
             improved_since_save = False
-            ckpt.save_weights(weights_path, state.model)
-            # base_lr = this run's schedule base, so a full-state resume can
-            # rebuild the schedule without --lr; steps_per_epoch anchors epoch
-            # numbering across resumes
-            ckpt.save_params_json(params_path, min_loss, epoch_lr, epoch, base_lr=lr,
-                                  steps_per_epoch=steps_per_epoch)
-        if args.orbax_dir and ((epoch - start_epoch) % args.orbax_interval == 0 or epoch == last):
+            if writes:
+                ckpt.save_weights(weights_path, state.model)
+                # base_lr = this run's schedule base, so a full-state resume
+                # can rebuild the schedule without --lr; steps_per_epoch
+                # anchors epoch numbering across resumes
+                ckpt.save_params_json(params_path, min_loss, epoch_lr, epoch, base_lr=lr,
+                                      steps_per_epoch=steps_per_epoch)
+        if (args.orbax_dir and ((epoch - start_epoch) % args.orbax_interval == 0 or epoch == last)
+                and writes):
             ckpt.save_train_state(args.orbax_dir, state)
+        barrier(mesh)
         t_end = time.perf_counter()
         row = {"epoch": epoch, "train_s": round(t_train - t_epoch0, 2),
                "val_s": round(t_val - t_train, 2), "save_s": round(t_end - t_val, 2),
@@ -441,11 +483,11 @@ def _train(args, device, dl_train, dl_val) -> dict:
         phase_rows.append(row)
         epoch_losses.append(step_losses)
         val_losses_by_epoch.append(val_loss)
-        print(f"  phases: train {row['train_s']}s, val {row['val_s']}s, "
-              f"save {row['save_s']}s -> {row['img_per_s_wall']} img/s wall")
+        say(f"  phases: train {row['train_s']}s, val {row['val_s']}s, "
+            f"save {row['save_s']}s -> {row['img_per_s_wall']} img/s wall")
 
-    print("Finished Training")
-    if phase_rows:
+    say("Finished Training")
+    if phase_rows and writes:
         Path(args.log_dir).mkdir(parents=True, exist_ok=True)
         (Path(args.log_dir) / "phase_times.json").write_text(json.dumps(phase_rows, indent=1))
     writer.close()

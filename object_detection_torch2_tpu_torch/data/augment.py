@@ -172,6 +172,15 @@ class AugmentDraws:
                  if getattr(self, k) is not None}
         return replace(self, **moved)
 
+    def rows(self, lo: int, hi: int) -> "AugmentDraws":
+        """The draws of images [lo, hi) of the batch (the batch axis is the
+        last per-image axis: axis 0 of the (N,) draws, axis 1 of `erase` and
+        `rect`); `order` is the batch's."""
+        sliced = {k: getattr(self, k)[lo:hi] for k in ("jitter", "fb", "fc", "fs", "dh", "flip")
+                  if getattr(self, k) is not None}
+        sliced.update({k: getattr(self, k)[:, lo:hi] for k in ("erase", "rect") if getattr(self, k) is not None})
+        return replace(self, **sliced)
+
 
 def sample_augment_draws(generator: torch.Generator, n: int, h: int, w: int, p_jitter: float = 0.5,
                          p_flip: float = 0.5, p_erase: float = 0.5, max_iter: int = 3,
@@ -263,11 +272,18 @@ def apply_augment(images_u8: torch.Tensor, gts: torch.Tensor, draws: AugmentDraw
 
 def augment_batch(generator: torch.Generator, images_u8: torch.Tensor, gts: torch.Tensor, p_jitter: float = 0.5,
                   p_flip: float = 0.5, p_erase: float = 0.5, max_iter: int = 3, hue: float = 0.5,
-                  dtype: torch.dtype = torch.float32):
+                  dtype: torch.dtype = torch.float32, total: int | None = None, offset: int = 0):
     """`apply_augment` of `sample_augment_draws(generator, ...)`: the batched
     train-time augmentation. hue: hue-jitter half-range (reference parity 0.5
-    is a full rotation; --train_aug reduced_hue uses 0.05)."""
+    is a full rotation; --train_aug reduced_hue uses 0.05).
+
+    total / offset: the images are rows [offset, offset + N) of a batch of
+    `total` (a rank's slice of the global batch under a data-parallel mesh):
+    the draws are made for all `total` rows and these rows' are kept, so the
+    ranks together draw what one process draws for the whole batch."""
     n, h, w, _ = images_u8.shape
-    draws = sample_augment_draws(generator, n, h, w, p_jitter=p_jitter, p_flip=p_flip, p_erase=p_erase,
-                                 max_iter=max_iter, hue=hue)
+    draws = sample_augment_draws(generator, n if total is None else total, h, w, p_jitter=p_jitter,
+                                 p_flip=p_flip, p_erase=p_erase, max_iter=max_iter, hue=hue)
+    if total is not None:
+        draws = draws.rows(offset, offset + n)
     return apply_augment(images_u8, gts, draws, dtype)

@@ -17,13 +17,15 @@ so the cache pays that copy once:
 Batch composition is the streaming path's, bit for bit: the DataLoader
 computes the same `np.random.default_rng(seed + epoch)` permutation either
 way and sorts each batch's indices as the records read does. One process
-only, as the JAX package's.
+only, as the JAX package's: a mesh of one rank is accepted, and several
+processes raise with the JAX package's message.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from object_detection_torch2_tpu_torch import resolve_device
 
@@ -59,11 +61,15 @@ class DeviceCache:
 
     gather(idx) returns device batches shaped like the streaming loader's:
     (B, ...) for 1-D idx, (K, B, ...) stacks for 2-D idx (the
-    `Trainer.train_steps` layout). device=None means the CUDA card, and
-    raises without one; pass "cpu" for the CPU."""
+    `Trainer.train_steps` layout). device=None means the mesh's device
+    under a mesh, else the CUDA card, and raises without one; pass "cpu"
+    for the CPU."""
 
-    def __init__(self, dataset, device=None, verbose: bool = True):
-        self.device = resolve_device(device)
+    def __init__(self, dataset, device=None, verbose: bool = True, mesh=None):
+        world = mesh.world if mesh is not None else (dist.get_world_size() if dist.is_initialized() else 1)
+        if world > 1:
+            raise ValueError("DeviceCache is single-process; multi-host uses the streaming loader")
+        self.device = resolve_device(mesh.device if device is None and mesh is not None else device)
         images, gts = np.asarray(dataset.images), np.asarray(dataset.gts)
 
         def log(done, n):

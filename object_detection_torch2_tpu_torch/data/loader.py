@@ -1,4 +1,4 @@
-"""Input pipeline: batching with a background prefetch thread, one process
+"""Input pipeline: batching with a background prefetch thread
 (counterpart of object_detection_torch2_tpu/data/loader.py:26-247).
 
 A background thread stages the next host batch while the current one runs,
@@ -16,8 +16,17 @@ package) uploads the dataset to `device` once (data/device_cache.py) and
 yields device tensors gathered there from the same shuffled, per-batch
 sorted indices: the same batches as streaming, bit for bit.
 
-Not ported yet (ROADMAP Queue 1 G2, scale-out): a data-parallel `mesh` and
-multi-process loading; `mesh` raises NotImplementedError.
+Several processes (the JAX loader's rules, its lines 85-123): every process
+computes the same global index order (the shared seed) and reads only its
+contiguous slice of each global batch, rows [rank * pp, (rank + 1) * pp)
+with pp = batch_size // world (`parallel.mesh.local_rows`). With a `mesh`
+(training) `drop_last` is required, so that every slice has pp rows. With
+`mesh=None` in a process of an initialized multi-process group (serving:
+`--distributed` / `--num_devices` in the serving CLIs) the final batch may be
+short: only the final slices may be short or empty, and a process whose
+slice is empty still yields it, with the trailing shapes, since every
+process joins every collective. `batch_size` is the global batch; it must
+divide over the processes.
 """
 
 from __future__ import annotations
@@ -26,6 +35,7 @@ import queue
 import threading
 
 import numpy as np
+import torch.distributed as dist
 
 from object_detection_torch2_tpu_torch.data.voc import collate
 
@@ -46,11 +56,10 @@ class DataLoader:
         device_cache: bool = False,
         device=None,
     ):
-        """device: where `device_cache` keeps the dataset (None: the CUDA
-        card, raising without one; "cpu" for the CPU); unused without it."""
-        if mesh is not None:
-            raise NotImplementedError("DataLoader(mesh=...): data-parallel loading is not ported yet "
-                                      "(ROADMAP Queue 1 G2)")
+        """device: where `device_cache` keeps the dataset (None: the mesh's
+        device, else the CUDA card, raising without one; "cpu" for the CPU);
+        unused without it. mesh: a parallel.mesh.Mesh (data-parallel
+        training; see the module docstring)."""
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -69,6 +78,20 @@ class DataLoader:
         # stack_steps=K groups K consecutive batches into (K, B, ...) stacks
         # (one dispatch per K steps); the final group of an epoch may be shorter
         self.stack_steps = max(1, int(stack_steps))
+        self.mesh = mesh
+        # the processes that share each global batch, and this one's place
+        if mesh is not None:
+            self._num_procs, self._proc = mesh.world, mesh.rank
+        elif dist.is_initialized():
+            self._num_procs, self._proc = dist.get_world_size(), dist.get_rank()
+        else:
+            self._num_procs, self._proc = 1, 0
+        if self._num_procs > 1:
+            if mesh is not None and not drop_last:
+                raise ValueError("multi-process DataLoader with a mesh requires drop_last=True (a ragged "
+                                 "final batch cannot be split into equal-shaped per-process slices)")
+            if batch_size % self._num_procs:
+                raise ValueError(f"batch_size {batch_size} must divide over {self._num_procs} processes")
         self._cache = None
         if device_cache:
             if not self._is_records:
@@ -77,7 +100,7 @@ class DataLoader:
                 raise ValueError("device_cache requires drop_last=True (static batch shapes)")
             from object_detection_torch2_tpu_torch.data.device_cache import DeviceCache
 
-            self._cache = DeviceCache(dataset, device)
+            self._cache = DeviceCache(dataset, device, mesh=mesh)
 
     def __len__(self):
         n = len(self.dataset)
@@ -87,7 +110,8 @@ class DataLoader:
 
     def _index_batches(self):
         """Per-batch index arrays, in the JAX loader's order: the seed + epoch
-        shuffle, then consecutive slices."""
+        shuffle, then consecutive slices (this process's slice of each with
+        several processes)."""
         n = len(self.dataset)
         order = np.arange(n)
         if self.shuffle:
@@ -95,7 +119,11 @@ class DataLoader:
             rng.shuffle(order)
         stop = n - n % self.batch_size if self.drop_last else n
         for start in range(0, stop, self.batch_size):
-            yield order[start : start + self.batch_size]
+            idx = order[start : start + self.batch_size]
+            if self._num_procs > 1:
+                per_proc = self.batch_size // self._num_procs
+                idx = idx[self._proc * per_proc : (self._proc + 1) * per_proc]
+            yield idx
 
     def _ensure_pool(self):
         if self._pool is None and self.num_workers > 0:
@@ -106,11 +134,27 @@ class DataLoader:
             )
         return self._pool
 
+    def _empty_batch(self):
+        """A (0, ...) batch with the trailing shapes: what a process whose
+        final slice is empty yields."""
+        if self._is_records:
+            images, gts = self.dataset.batch(np.zeros(0, np.int64))
+            return np.ascontiguousarray(images), np.ascontiguousarray(gts)
+        images, gts = collate([self.dataset[0]], max_gt=self.max_gt)
+        return images[:0], gts[:0]
+
     def _host_batches(self):
         if not self._is_records and self._ensure_pool() is not None:
-            yield from self._pool.batches(self._index_batches())
+            idxs = list(self._index_batches())
+            empty_tail = sum(1 for i in idxs if len(i) == 0)  # only the final slice can be empty
+            yield from self._pool.batches(iter(i for i in idxs if len(i)))
+            for _ in range(empty_tail):
+                yield self._empty_batch()
             return
         for idx in self._index_batches():
+            if len(idx) == 0:
+                yield self._empty_batch()
+                continue
             if self._is_records:
                 images, gts = self.dataset.batch(np.sort(idx))
                 images, gts = np.ascontiguousarray(images), np.ascontiguousarray(gts)

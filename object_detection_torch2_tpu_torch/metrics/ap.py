@@ -1,5 +1,5 @@
 """Average precision, parity and strict modes
-(copy of object_detection_torch2_tpu/metrics/ap.py:17-81, numpy only).
+(copy of object_detection_torch2_tpu/metrics/ap.py:17-125).
 
 Quirk Q5: the reference sorts each column of its (correct, score) result
 INDEPENDENTLY (`torch.sort(result, dim=0)` puts all TPs first, decoupled from
@@ -8,8 +8,9 @@ the scores), so its reported "average precision" equals recall = TP/count.
 published 0.314 mAP must use it). `strict=True` ranks by score descending, the
 conventional VOC-style interpolated AP.
 
-`merge_accumulators_across_processes` (multi-process evaluation) is not
-ported yet; it goes with the scale-out slice.
+`merge_accumulators_across_processes` (multi-process evaluation) gathers the
+processes' rows over a data-parallel mesh's host-side gloo group
+(parallel/mesh.py).
 """
 
 from __future__ import annotations
@@ -89,3 +90,41 @@ class APAccumulator:
             aps[c] = average_precision(correct, scores, self.counts[c], strict=strict)
         mean = float(np.nanmean(aps)) if np.isfinite(aps).any() else float("nan")
         return aps, mean
+
+
+def merge_accumulators_across_processes(acc: APAccumulator, mesh=None) -> APAccumulator:
+    """Cross-process reduction for multi-process evaluation (`--distributed`,
+    `--num_devices`): every process accumulated the rows of its own slices;
+    this all-gathers the accumulated state over `mesh` (a parallel.mesh.Mesh)
+    and returns a merged accumulator whose `result()` equals one process's
+    over all the rows, on every process. Row order within a class does not
+    matter: the parity metric (Q5) only sums the correct flags, and strict
+    AP re-sorts by score (stably: equal scores keep rank order). No mesh, or
+    one rank: the identity.
+
+    Ragged per-process row counts are exchanged as the JAX package does
+    (size all-gather, pad to the largest, all-gather, trim:
+    `parallel.mesh.all_gather_rows`)."""
+    if mesh is None or mesh.world == 1:
+        return acc
+    from object_detection_torch2_tpu_torch.parallel.mesh import all_gather_rows
+
+    rows = []  # (class_id, correct, score) triples, all classes flattened
+    for c in range(acc.num_classes):
+        if acc.correct[c]:
+            cc = np.concatenate(acc.correct[c]).astype(np.float32)
+            ss = np.concatenate(acc.scores[c]).astype(np.float32)
+            rows.append(np.stack([np.full_like(ss, c), cc, ss], axis=-1))
+    local = np.concatenate(rows, axis=0) if rows else np.zeros((0, 3), np.float32)
+    all_rows = all_gather_rows(local, mesh)
+    all_counts = all_gather_rows(acc.counts.astype(np.int64)[None], mesh)
+
+    merged = APAccumulator(acc.num_classes)
+    merged.counts = np.concatenate(all_counts).sum(axis=0)
+    for rows_p in all_rows:
+        for c in range(acc.num_classes):
+            m = rows_p[:, 0] == c
+            if m.any():
+                merged.correct[c].append(rows_p[m, 1])
+                merged.scores[c].append(rows_p[m, 2])
+    return merged

@@ -23,6 +23,11 @@ Numerics: convs run in `dtype` (float32 or bfloat16), BatchNorm math in
 float32. In float32 the convs run in true f32, as the JAX package's
 `precision=HIGHEST` does: the forward switches cuDNN's TF32 off
 (`true_float32`), and `Trainer` takes its gradients inside the same context.
+`dtype=torch.float64` is an exact reference on the CPU (convs, BatchNorm and
+the output in float64; the parameters stay float32): the extras' float32
+gradients move by up to tens of percent with the reduction order of the
+batch statistics (PERF.md), so two computations that should agree, e.g. one
+process against a data-parallel mesh, are held to each other in float64.
 
 `conv12_kernel=True` runs layer 1_2 through `ops.conv12.conv12`: on the card
 the hand-written kernel csrc/conv12.cu, which sums in float32 and adds the
@@ -75,7 +80,7 @@ from torch import nn
 
 from object_detection_torch2_tpu_torch import true_float32
 from object_detection_torch2_tpu_torch.models import quant
-from object_detection_torch2_tpu_torch.models.bn import BatchNorm
+from object_detection_torch2_tpu_torch.models.bn import BatchNorm, set_mesh  # noqa: F401
 from object_detection_torch2_tpu_torch.ops.conv12 import conv12
 from object_detection_torch2_tpu_torch.ops.int8_conv import int8_conv, pack_weight, quantize_act
 
@@ -112,6 +117,7 @@ EXTRA_LAYERS = (
 DETECTOR_TAPS = (("4_3", 4), ("7_1", 6), ("8_2", 6), ("9_2", 6), ("10_2", 4), ("11_2", 4))
 
 DTYPES = (torch.float32, torch.bfloat16)
+REFERENCE_DTYPE = torch.float64  # the exact CPU reference (see the module docstring)
 
 
 def _layer_specs():
@@ -146,6 +152,12 @@ def normalize_image(x: torch.Tensor) -> torch.Tensor:
     return (x - mean) * inv_std.to(x.device, non_blocking=True)
 
 
+def output_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The head outputs' dtype of a model computing in `dtype`: float32, or
+    float64 for the reference dtype."""
+    return REFERENCE_DTYPE if dtype == REFERENCE_DTYPE else torch.float32
+
+
 class SSD(nn.Module):
     """SSD300. Input (N, H, W, 3) in [0, 1]; output (N, P, num_classes + 4) float32.
 
@@ -164,7 +176,7 @@ class SSD(nn.Module):
                  conv12_kernel: bool | None = None, trunk_int8: bool = False, full_int8: bool = False,
                  conv12_int8: bool = False, quant_calibrate: bool = False):
         super().__init__()
-        if dtype not in DTYPES:
+        if dtype not in DTYPES + (REFERENCE_DTYPE,):
             raise ValueError(f"dtype must be one of {DTYPES}, got {dtype}")
         self.num_classes = num_classes
         self.dtype = dtype
@@ -311,4 +323,4 @@ class SSD(nn.Module):
             # (N, A*(C+4), H, W) -> (N, H*W*A, C+4): rows h-major, then w, then
             # anchor (reference: ssd.py:103)
             outputs.append(y.permute(0, 2, 3, 1).reshape(n, -1, self.num_classes + 4))
-        return torch.cat(outputs, dim=1).to(torch.float32)
+        return torch.cat(outputs, dim=1).to(output_dtype(self.dtype))

@@ -46,7 +46,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from object_detection_torch2_tpu_torch import true_float32
-from object_detection_torch2_tpu_torch.models.bn import BatchNorm
+from object_detection_torch2_tpu_torch.models.bn import BatchNorm, set_mesh  # noqa: F401
 from object_detection_torch2_tpu_torch.models.ssd import DTYPES, normalize_image
 
 VGG_CFG = (64, 64, "M", 128, 128, "M", 256, 256, 256, "M_P", 512, 512, 512, "M", 512, 512, 512, "M_P")
@@ -70,12 +70,20 @@ def canonical_conv_names(cfg=VGG_CFG):
     return out
 
 
-def dropout(x: torch.Tensor, p: float, generator: torch.Generator) -> torch.Tensor:
+def dropout(x: torch.Tensor, p: float, generator: torch.Generator, total: int | None = None,
+            offset: int = 0) -> torch.Tensor:
     """Keep each element with probability 1 - p (a uniform draw of
-    `generator` >= p) and scale the kept ones by 1 / (1 - p)."""
+    `generator` >= p) and scale the kept ones by 1 / (1 - p). total / offset:
+    x holds rows [offset, offset + N) of a batch of `total` rows (a rank's
+    slice under a data-parallel mesh): the draws are made at the whole
+    batch's shape and these rows' are kept, as one process draws them."""
     if p >= 1.0:
         return torch.zeros_like(x)
-    keep = torch.rand(x.shape, generator=generator, device=x.device, dtype=torch.float32) >= p
+    if total is None:
+        keep = torch.rand(x.shape, generator=generator, device=x.device, dtype=torch.float32) >= p
+    else:
+        keep = torch.rand((total, *x.shape[1:]), generator=generator, device=x.device,
+                          dtype=torch.float32)[offset:offset + x.shape[0]] >= p
     return torch.where(keep, x / (1.0 - p), torch.zeros((), dtype=x.dtype, device=x.device))
 
 
@@ -98,6 +106,7 @@ class VGG16(nn.Module):
         self.transfer_learning = transfer_learning
         self.dropout_rate = dropout_rate
         self.dtype = dtype
+        self.mesh = None  # a parallel.mesh.Mesh (models.bn.set_mesh): dropout drawn at the global batch's shape
         self.layers = canonical_conv_names()
         self.features = nn.ModuleDict()
         cin = 3
@@ -139,6 +148,8 @@ class VGG16(nn.Module):
             raise ValueError("a training forward with dropout needs a generator")
         with true_float32():
             n = x.shape[0]
+            mesh = self.mesh
+            rows = () if mesh is None else (n * mesh.world, n * mesh.rank)
             # NHWC -> NCHW: a view with channels_last strides on the card
             x = normalize_image(x).permute(0, 3, 1, 2).to(self.dtype)
             if x.device.type == "cpu":
@@ -158,7 +169,7 @@ class VGG16(nn.Module):
                 if i < 2:
                     x = F.relu(x)
                     if drop:
-                        x = dropout(x, self.dropout_rate, generator)
+                        x = dropout(x, self.dropout_rate, generator, *rows)
         return x.to(torch.float32)
 
 

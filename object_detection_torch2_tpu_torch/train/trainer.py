@@ -46,8 +46,29 @@ trainable quantized trunk layer (`init_state`). The trunk needs no gradient
 through the int8 convs: its parameters are frozen and its activations carry
 no autograd graph.
 
-Not ported yet (it raises NotImplementedError; ROADMAP.md Queue 1): data
-parallelism (`mesh`, item G2).
+Data parallelism (`mesh=`, a parallel.mesh.Mesh): one process a device,
+each holding its contiguous slice of every global batch; the step computes
+what the JAX package's jitted step computes over the batch sharded across a
+`Mesh(('data',))`:
+- the augment draws of a step, and a classifier's dropout masks, are made
+  for the GLOBAL batch (n_local x world rows) and each rank keeps its own
+  rows. The JAX step draws at the global shape inside one program; drawing
+  per rank would give each rank the first rows' draws, so 2 ranks x 16
+  images would not take the step that 1 rank x 32 takes;
+- BatchNorm's statistics are the global batch's (models/bn.py, with the
+  mesh handed to every BatchNorm), forward and backward;
+- the trainable gradients and the loss go through ONE all-reduce of one
+  flattened buffer, then the mean: the MultiBox loss is a mean over images of
+  per-image terms, and the cross-entropy a batch mean, so with equal slices
+  the global loss is the mean of the ranks' losses and its gradient the mean
+  of theirs. Every rank then takes the same Adam step: the parameters and
+  running statistics stay bit-identical on every rank without a broadcast,
+  and a step returns the global loss, as the JAX step does;
+- ranks build the same seeded model (and the same int8 scales); the
+  constructor checks that once with a fingerprint all-gather
+  (`parallel.mesh.replicate`).
+A mesh of one rank computes what `mesh=None` does, bit for bit. On NCCL the
+step makes no host sync, as without a mesh.
 """
 
 from __future__ import annotations
@@ -58,7 +79,10 @@ import torch
 from object_detection_torch2_tpu_torch import resolve_device, true_float32
 from object_detection_torch2_tpu_torch.core.multibox import multibox_loss
 from object_detection_torch2_tpu_torch.data.augment import augment_batch, to_tensor_batch
+from object_detection_torch2_tpu_torch.models.bn import set_mesh
+from object_detection_torch2_tpu_torch.models.ssd import output_dtype
 from object_detection_torch2_tpu_torch.models.vgg16 import cross_entropy
+from object_detection_torch2_tpu_torch.parallel.mesh import all_reduce_mean_, replicate
 from object_detection_torch2_tpu_torch.train.state import TrainState
 
 
@@ -92,8 +116,11 @@ def _trunk_layer(name: str) -> bool:
 class Trainer:
     """Train and eval steps for one SSD and its anchor table.
 
-    device=None means the CUDA card, and raises without one; pass
-    device="cpu" to run on the CPU. The model is moved to `device` in place.
+    device=None means the CUDA card (the mesh's device under a mesh), and
+    raises without one; pass device="cpu" to run on the CPU. The model is
+    moved to `device` in place. mesh: a parallel.mesh.Mesh for data
+    parallelism (see the module docstring); images and targets given to a
+    step are then this rank's slice of the global batch.
     A TrainState from `init_state` is updated in place by every step.
 
     augment: True (the reference's distributions), a dict of overrides for
@@ -107,8 +134,6 @@ class Trainer:
                  device=None, ce_parity_sign: bool = False):
         if loss_kind not in ("multibox", "cross_entropy"):
             raise ValueError(f"unknown loss_kind {loss_kind!r}")
-        if mesh is not None:
-            raise NotImplementedError("data parallelism is not ported yet (ROADMAP.md Queue 1 item G2)")
         if loss_kind == "multibox" and default_boxes is None:
             raise ValueError("multibox loss requires default_boxes")
         if getattr(model, "full_int8", False):
@@ -120,15 +145,23 @@ class Trainer:
             from object_detection_torch2_tpu_torch.models.quant import check_calibrated
 
             self.quant = dict(check_calibrated(quant))
-        self.device = resolve_device(device)
-        self.model = model.to(self.device)
+        if mesh is not None and device is not None:
+            dev = resolve_device(device)
+            if dev.type != mesh.device.type or dev.index not in (None, mesh.device.index):
+                raise ValueError(f"device {device} is not the mesh's device {mesh.device}")
+        self.mesh = mesh
+        self.device = mesh.device if mesh is not None else resolve_device(device)
+        self.model = set_mesh(model.to(self.device), mesh)
         if self.quant is not None:
             self.model.set_quant(self.quant)
             self.model.quant_reciprocal = True
+        replicate(self.model, mesh)
         self.loss_kind = loss_kind
         self.ce_parity_sign = ce_parity_sign
+        # the loss runs in the outputs' dtype: float32, float64 for a float64 reference model
+        self.loss_dtype = output_dtype(getattr(model, "dtype", torch.float32))
         self.default_boxes = (None if default_boxes is None else
-                              torch.tensor(np.asarray(default_boxes), dtype=torch.float32, device=self.device))
+                              torch.tensor(np.asarray(default_boxes), dtype=self.loss_dtype, device=self.device))
         self.alpha = alpha
         self.use_batch_stats = use_batch_stats
         self.augment_config = ({} if augment is True else dict(augment)) if augment else None
@@ -152,17 +185,21 @@ class Trainer:
         return TrainState.create(self.model, make_optimizer, is_trainable)
 
     def _inputs(self, images, targets, generator=None):
-        """Host arrays or tensors -> images in [0, 1] and float32 targets on
-        the device (a tensor already there is not copied): a uint8 batch goes
+        """Host arrays or tensors -> images in [0, 1] and targets in the
+        loss's dtype (float32; float64 for a float64 reference model) on the
+        device (a tensor already there is not copied): a uint8 batch goes
         through the augment chain when there is one and a generator is given,
         else through x(1/255)."""
         images, targets = (torch.as_tensor(a).to(self.device, non_blocking=True) for a in (images, targets))
-        targets = targets.to(torch.float32)
+        targets = targets.to(self.loss_dtype)
         if images.dtype != torch.uint8:
             return images, targets
         if self.augment_config is not None and generator is not None:
             cfg = dict(self.augment_config)
             cfg.setdefault("dtype", getattr(self.model, "dtype", torch.float32))
+            if self.mesh is not None:  # the global batch's draws, this rank's rows
+                n = images.shape[0]
+                cfg.update(total=n * self.mesh.world, offset=n * self.mesh.rank)
             return augment_batch(generator, images, targets, **cfg)
         return to_tensor_batch(images), targets
 
@@ -184,7 +221,8 @@ class Trainer:
     def train_step(self, state: TrainState, images, targets) -> torch.Tensor:
         """One step on images (N, H, W, 3) uint8 or float in [0, 1] and targets
         (N, G, 4 + C). Updates `state` in place; returns the loss (a 0-d
-        tensor on the device, computed before the update)."""
+        tensor on the device, computed before the update; the global batch's
+        under a mesh)."""
         images, targets = self._inputs(images, targets, step_generator(self.seed, state.step))
         state.model.train()
         params = list(state.trainable.values())
@@ -192,8 +230,12 @@ class Trainer:
             loss = self._loss(self._forward(state.model, images, state.step), targets)
             # zeros, not None, for a parameter the loss does not reach
             grads = torch.autograd.grad(loss, params, materialize_grads=True)
+        loss = loss.detach()
+        if self.mesh is not None:
+            loss = loss.clone()
+            all_reduce_mean_([*grads, loss], self.mesh)
         state.apply_gradients(grads)
-        return loss.detach()
+        return loss
 
     def train_steps(self, state: TrainState, images_k, targets_k) -> torch.Tensor:
         """K steps over (K, N, ...) stacks; returns the (K,) losses. The same
@@ -207,7 +249,10 @@ class Trainer:
         statistics, and the running statistics updated (quirk Q9); a
         classifier's dropout off. With `augment` and a generator `rng`, the
         batch takes the train augments (the reference's validation, quirk
-        Q3)."""
+        Q3). Under a mesh: the global batch's loss."""
         images, targets = self._inputs(images, targets, rng if augment else None)
         state.model.train()
-        return self._loss(self._forward(state.model, images), targets)
+        loss = self._loss(self._forward(state.model, images), targets)
+        if self.mesh is not None:
+            all_reduce_mean_([loss], self.mesh)
+        return loss

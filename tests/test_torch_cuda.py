@@ -613,3 +613,93 @@ def test_int8_ssd_on_the_card_equals_the_plain_conv(card, dtype, monkeypatch):
     with torch.no_grad():
         want = model(x)
     assert torch.equal(got, want)
+
+
+# ------------------------------------------------------------ data parallelism
+
+
+def _dp_step(mesh, images, targets, dtype=torch.float32):
+    """One SGD step of a seeded SSD at imsize 264 on this rank's rows (all
+    rows without a mesh), cuDNN deterministic: the loss, the trained
+    parameters on the host and the conv12 launches."""
+    from object_detection_torch2_tpu_torch.core.anchors import default_boxes, feature_grids_for
+    from object_detection_torch2_tpu_torch.parallel.mesh import local_rows
+    from object_detection_torch2_tpu_torch.train.trainer import Trainer
+
+    torch.backends.cudnn.deterministic = True
+    trainer = Trainer(SSD(num_classes=21, dtype=dtype, conv12_kernel=True),
+                      default_boxes=default_boxes(feature_grids_for(264)), mesh=mesh,
+                      device=None if mesh is not None else "cuda")
+    state = trainer.init_state(lambda ps: torch.optim.SGD(ps, lr=1e-3))
+    before = conv12_cuda.kernel_launches[conv12_cuda.KERNEL_OF[dtype]]
+    loss = trainer.train_step(state, local_rows(images, mesh), local_rows(targets, mesh))
+    torch.cuda.synchronize()
+    return {"loss": float(loss), "params": {k: p.detach().cpu() for k, p in state.trainable.items()},
+            "launches": conv12_cuda.kernel_launches[conv12_cuda.KERNEL_OF[dtype]] - before}
+
+
+def _dp_batch():
+    rng = np.random.default_rng(12)
+    images = rng.integers(0, 256, (4, 264, 264, 3), dtype=np.uint8)
+    targets = np.zeros((4, 8, 25), np.float32)
+    targets[:, :2, :4] = rng.uniform(0.2, 0.6, (4, 2, 4))
+    targets[:, :2, 9] = 1.0
+    return images, targets
+
+
+def test_nccl_world_one_trainer_equals_plain_without_host_syncs(card, tmp_path):
+    """A mesh of one NCCL rank: `Trainer(mesh=)` takes the plain Trainer's
+    augmented bfloat16 Adam steps bit for bit (the synced statistics and the
+    gradient all-reduce over one rank are identities), launches the conv12
+    kernel once a step, and waits on the card nowhere."""
+    from object_detection_torch2_tpu_torch.core.anchors import default_boxes, feature_grids_for
+    from object_detection_torch2_tpu_torch.parallel import mesh as mesh_lib
+    from object_detection_torch2_tpu_torch.train.optimizer import adam_torch
+    from object_detection_torch2_tpu_torch.train.trainer import Trainer
+
+    mesh = mesh_lib.init_process(0, 1, tmp_path / "store", backend="nccl")
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        assert mesh.backend == "nccl" and mesh.device.type == "cuda"
+        images, targets = _dp_batch()
+        runs = {}
+        for name, m in (("plain", None), ("mesh", mesh)):
+            trainer = Trainer(SSD(num_classes=21, dtype=torch.bfloat16, conv12_kernel=True),
+                              default_boxes=default_boxes(feature_grids_for(264)), augment=True, mesh=m,
+                              device=card)
+            state = trainer.init_state(lambda ps: adam_torch(ps, 1e-3, weight_decay=5e-4))
+            losses = [trainer.train_step(state, images, targets)]
+            torch.cuda.synchronize()
+            before = conv12_cuda.kernel_launches["conv12_bf16"]
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                losses += [trainer.train_step(state, images, targets) for _ in range(2)]
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            assert conv12_cuda.kernel_launches["conv12_bf16"] - before == 2
+            runs[name] = (torch.stack(losses).cpu(), {k: v.cpu() for k, v in state.model.state_dict().items()})
+        assert torch.equal(runs["mesh"][0], runs["plain"][0])
+        for key, value in runs["plain"][1].items():
+            assert torch.equal(runs["mesh"][1][key], value), key
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        mesh_lib.shutdown()
+
+
+def test_gloo_two_ranks_on_one_card_equal_one_process(card):
+    """2 gloo ranks on the one card (NCCL refuses two ranks on one GPU), 2
+    images each: a float32 SGD step against one process over the 4 images,
+    at the CPU tests' tolerances; both ranks bit-identical; the conv12
+    kernel launched once on each rank."""
+    from object_detection_torch2_tpu_torch.parallel.mesh import launch
+
+    images, targets = _dp_batch()
+    ranks = launch(_dp_step, 2, (images, targets), backend="gloo", devices=["cuda:0", "cuda:0"], timeout=300)
+    one = _dp_step(None, images, targets)
+    assert [r["launches"] for r in ranks] == [1, 1]
+    assert ranks[0]["loss"] == ranks[1]["loss"]
+    np.testing.assert_allclose(ranks[0]["loss"], one["loss"], rtol=1e-5)
+    for key, value in one["params"].items():
+        assert torch.equal(ranks[0]["params"][key], ranks[1]["params"][key]), key
+        np.testing.assert_allclose(ranks[0]["params"][key].numpy(), value.numpy(), rtol=1e-4, atol=4e-6, err_msg=key)

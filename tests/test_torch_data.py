@@ -8,6 +8,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 from object_detection_torch2_tpu.data.loader import DataLoader as JaxDataLoader
 from object_detection_torch2_tpu.data.records import pack_voc as jax_pack_voc
@@ -119,8 +120,21 @@ def test_loader_num_workers_equivalence():
 
 
 def test_loader_unported_options_and_errors(records):
-    with pytest.raises(NotImplementedError, match="Queue 1 G"):
-        DataLoader(records, batch_size=2, mesh=object())
+    """A data-parallel mesh gives each rank its contiguous slice of every
+    global batch (tests/test_torch_parallel.py holds the slices against the
+    JAX loader's); the JAX loader's refusals stay: a batch that does not
+    divide over the ranks, and a ragged final batch under a mesh."""
+    from object_detection_torch2_tpu_torch.parallel.mesh import Mesh
+
+    whole = [gts for _, gts in DataLoader(records, batch_size=2)]
+    halves = [[gts for _, gts in DataLoader(records, batch_size=2, mesh=Mesh(r, 2, torch.device("cpu")))]
+              for r in range(2)]
+    for batch, (a, b) in zip(whole, zip(*halves), strict=True):
+        np.testing.assert_array_equal(np.concatenate([a, b]), batch)
+    with pytest.raises(ValueError, match="must divide over 2 processes"):
+        DataLoader(records, batch_size=3, mesh=Mesh(0, 2, torch.device("cpu")))
+    with pytest.raises(ValueError, match="drop_last"):
+        DataLoader(records, batch_size=2, mesh=Mesh(0, 2, torch.device("cpu")), drop_last=False)
     with pytest.raises(ValueError, match="drop_last"):
         DataLoader(records, batch_size=2, device_cache=True, drop_last=False, device="cpu")
 

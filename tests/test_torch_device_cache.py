@@ -100,15 +100,24 @@ def test_gather_shapes_and_chunked_upload(rec, monkeypatch):
 
 
 def test_device_cache_guards(rec):
-    """The JAX package's guards: records only and drop_last; a mesh waits for
-    G2; no card means an error unless the CPU is asked for."""
+    """The JAX package's guards: records only and drop_last; one process (a
+    mesh of one rank is accepted and gives the streaming batches, several
+    raise with the JAX package's message); no card means an error unless the
+    CPU is asked for."""
+    from object_detection_torch2_tpu_torch.parallel.mesh import Mesh
+
     with pytest.raises(ValueError, match="RecordDataset"):
         DataLoader([(np.zeros((8, 8, 3), np.uint8), np.zeros((1, 25), np.float32))] * 4, batch_size=2,
                    device_cache=True, device="cpu")
     with pytest.raises(ValueError, match="drop_last"):
         DataLoader(RecordDataset(rec), batch_size=2, drop_last=False, device_cache=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="G2"):
-        DataLoader(RecordDataset(rec), batch_size=2, device_cache=True, device="cpu", mesh=object())
+    cached = DataLoader(RecordDataset(rec), batch_size=2, device_cache=True, mesh=Mesh(0, 1, torch.device("cpu")))
+    for (ci, cg), (si, sg) in zip(cached, DataLoader(RecordDataset(rec), batch_size=2), strict=True):
+        np.testing.assert_array_equal(ci.numpy(), si)
+        np.testing.assert_array_equal(cg.numpy(), sg)
+    with pytest.raises(ValueError, match="DeviceCache is single-process"):
+        DataLoader(RecordDataset(rec), batch_size=2, device_cache=True, device="cpu",
+                   mesh=Mesh(0, 2, torch.device("cpu")))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             DataLoader(RecordDataset(rec), batch_size=2, device_cache=True)

@@ -205,9 +205,19 @@ def test_padding_helpers_match_jax(n):
 
 
 @pytest.mark.parametrize("flags,item", [(["--distributed"], "G"), (["--num_devices", "2"], "G")])
-def test_cli_unported_flags_raise(tmp_path, flags, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 {item}"):
-        evaluate.main(CLI_ARGS + ["--data_dirs", str(FIXTURE), "--result_dir", str(tmp_path)] + flags)
+def test_cli_unported_flags_raise(tmp_path, flags, item, capsys):
+    """The flags of ROADMAP Queue 1 item G (data parallelism), ported:
+    --distributed without torchrun's environment raises; --num_devices 2 at
+    batch 3 serves on the largest count that divides the batch, one process,
+    with the JAX package's note (tests/test_torch_parallel_cli.py runs 2)."""
+    argv = CLI_ARGS + ["--data_dirs", str(FIXTURE), "--result_dir", str(tmp_path)] + flags
+    if flags == ["--distributed"]:
+        with pytest.raises(RuntimeError, match="torchrun"):
+            evaluate.main(argv)
+        return
+    aps, _, _, _ = evaluate.main(argv)
+    assert "note: serving on 1 device(s) — batch_size 3 does not divide over 2" in capsys.readouterr().out
+    assert len(aps) == 20 and item == "G"
 
 
 @pytest.mark.parametrize("flag,calls", [("--trunk_int8", 11), ("--full_int8", 27)])

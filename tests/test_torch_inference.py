@@ -133,8 +133,19 @@ def test_cli_needs_pil(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("flags,item", [(["--distributed"], "G"), (["--num_devices", "2"], "G")])
 def test_cli_unported_flags_raise(tmp_path, flags, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 {item}"):
-        inference.main(CLI_ARGS + ["--data_dirs", str(FIXTURE), "--result_dir", str(tmp_path)] + flags)
+    """The flags of ROADMAP Queue 1 item G (data parallelism), ported: the
+    refusals that remain. --distributed without torchrun's environment
+    raises; --export_pipeline writes one single-device artifact, so with
+    --num_devices 2 it raises (tests/test_torch_parallel_cli.py runs the
+    inference on 2 processes)."""
+    argv = CLI_ARGS + ["--data_dirs", str(FIXTURE), "--result_dir", str(tmp_path)] + flags
+    if flags == ["--distributed"]:
+        with pytest.raises(RuntimeError, match="torchrun"):
+            inference.main(argv)
+    else:
+        with pytest.raises(ValueError, match="single-device artifact"):
+            inference.main(argv + ["--export_pipeline", str(tmp_path / "x.bin"), "--export_platforms", "cpu"])
+    assert item == "G" and not (tmp_path / "x.bin").exists()
 
 
 @pytest.mark.parametrize("flag", ["--trunk_int8", "--full_int8"])

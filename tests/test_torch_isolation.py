@@ -37,6 +37,8 @@ def test_import_pulls_in_no_jax():
     mods = _port_modules() + ["chip_smoke", "kernel_times"]
     for cli in ("evaluate", "train", "inference"):
         assert f"object_detection_torch2_tpu_torch.cli.{cli}" in mods
+    for mod in ("parallel", "parallel.mesh"):  # data parallelism on torch.distributed
+        assert f"object_detection_torch2_tpu_torch.{mod}" in mods
     # `import torch` itself tries tqdm (torch.hub) and goes on without it, so
     # those count only when the port's imports load them
     code = (

@@ -314,8 +314,11 @@ def test_trainer_refusals():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             Trainer(model, default_boxes=df)
-    with pytest.raises(NotImplementedError):
-        Trainer(model, default_boxes=df, device="cpu", mesh=object())
+    # a data-parallel mesh runs on its own device (tests/test_torch_parallel.py)
+    from object_detection_torch2_tpu_torch.parallel.mesh import Mesh
+
+    with pytest.raises(ValueError, match="mesh's device"):
+        Trainer(model, default_boxes=df, device="cpu", mesh=Mesh(0, 1, torch.device("meta")))
     # an int8 trunk needs calibrated scales: the JAX package's check_calibrated
     with pytest.raises(ValueError, match="calibrated activation scales"):
         Trainer(SSD(trunk_int8=True), default_boxes=df, device="cpu", quant={})

@@ -392,8 +392,18 @@ def test_orbax_dir_sets_cudnn_deterministic_for_the_run(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("flags,item", [(["--distributed"], "G"), (["--num_devices", "2"], "G")])
 def test_unported_flags_raise(tmp_path, flags, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 {item}"):
-        _run(tmp_path, *flags, orbax=False)
+    """The flags of ROADMAP Queue 1 item G (data parallelism), ported: the
+    refusals that remain. --distributed without torchrun's environment
+    raises; --num_devices 2 with a global batch that does not divide over 2
+    raises with the JAX CLI's message (tests/test_torch_parallel_cli.py
+    trains on 2 processes). Nothing is written."""
+    if flags == ["--distributed"]:
+        with pytest.raises(RuntimeError, match="torchrun"):
+            _run(tmp_path, *flags, orbax=False)
+    else:
+        with pytest.raises(ValueError, match="batch_size 3 must divide over 2 devices"):
+            _run(tmp_path, *flags, "--batch_size", "3", orbax=False)
+    assert item == "G" and not (tmp_path / "logs").exists()
 
 
 @pytest.mark.parametrize("flags", [["--train_trunk"], ["--purpose", "classification"]])
