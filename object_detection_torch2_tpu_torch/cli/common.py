@@ -84,7 +84,8 @@ def add_common_args(parser, batch_size_default: int):
 
 def add_serving_args(parser):
     """Flags shared by the serving CLIs (inference/evaluate) beyond
-    add_common_args; the multi-process one is not ported yet."""
+    add_common_args: the int8 paths and --distributed (multi-process
+    serving under torchrun; --num_devices is in add_common_args)."""
     parser.add_argument("--trunk_int8", action="store_true",
                         help="serve the frozen VGG trunk's blocks 2-5 as int8 convolutions (models/quant.py; "
                              "the int8 kernel on the card); activation scales are read from "
@@ -192,11 +193,11 @@ def run_data_parallel(args, fn, world_of, drop=()):
             return fn(args, mesh)
         finally:
             shutdown()
-    device = resolve_device(args.device)
     world = world_of(args)
     if world == 1:
         return fn(args, None)
-    return launch(_rank_main, world, (fn, args, tuple(drop)), device_type=device.type, backend=args.dist_backend)[0]
+    return launch(_rank_main, world, (fn, args, tuple(drop)), device_type=resolve_device(args.device).type,
+                  backend=args.dist_backend)[0]
 
 
 def calib_image_batches(dataset, n_batches: int, batch_size: int):

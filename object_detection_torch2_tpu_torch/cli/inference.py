@@ -32,13 +32,16 @@ Several processes (`--distributed`, or `--num_devices N`: cli.common's
 process reads its contiguous slice of every global batch, pads it to
 batch_size // world rows, runs it with the global batch's real count, and
 renders and writes the PNGs of its own rows, numbered by their global index.
-`--export_pipeline` writes one single-device artifact and runs in one
-process: with several it raises.
+`--export_pipeline` writes one single-device artifact whatever the flags of
+several processes say, as the JAX CLI does (its cli/inference.py:87-99):
+`--num_devices N` launches nothing, and under `--distributed` rank 0 writes
+it while the others wait at a barrier (one writer of a path).
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import time
 from pathlib import Path
 
@@ -50,6 +53,7 @@ from object_detection_torch2_tpu_torch.data.loader import DataLoader
 from object_detection_torch2_tpu_torch.data.records import RecordDataset
 from object_detection_torch2_tpu_torch.data.voc import PascalVOCDataset
 from object_detection_torch2_tpu_torch.infer import build_detection_pipeline, unpack_detections
+from object_detection_torch2_tpu_torch.parallel.mesh import barrier
 from object_detection_torch2_tpu_torch.utils.hostsync import FetchPipeline
 from object_detection_torch2_tpu_torch.utils.render import (
     hls_palette,
@@ -97,10 +101,7 @@ def main(argv=None) -> dict:
     if args.batches_per_dispatch < 1:
         raise SystemExit(f"--batches_per_dispatch must be >= 1, got {args.batches_per_dispatch}")
     if args.export_pipeline:
-        if args.distributed or (args.num_devices or 1) > 1:
-            raise ValueError("--export_pipeline writes one single-device artifact: run it in one process "
-                             "(without --distributed, --num_devices 1)")
-        return {"export": _export(args)}
+        return {"export": common.run_data_parallel(args, _export, _export_world)}
     require_pil()
     return common.run_data_parallel(args, _main, common.serving_mesh)
 
@@ -183,14 +184,27 @@ def _dataset(args):
     return PascalVOCDataset("detection", args.data_dirs or common.DEFAULT_TEST_DIRS, "test.txt", args.imsize)
 
 
-def _export(args) -> dict:
+def _export_world(args, mesh=None) -> int:
+    """The export's world: one process, or under --distributed torchrun's
+    world, held to the serving CLIs' rules (cli.common.serving_mesh)."""
+    return 1 if mesh is None else common.serving_mesh(args, mesh)
+
+
+def _export(args, mesh=None) -> dict:
     """The model, on its int8 path when a flag asks (--full_int8 calibrated
-    on --device over the run's dataset), as an exported pipeline."""
+    on the rank's device over the run's dataset), as an exported pipeline;
+    returns its metadata. Under a mesh rank 0 writes the artifact while the
+    others wait at a barrier, then read its metadata."""
     from object_detection_torch2_tpu_torch.serving import export_detection_pipeline
 
+    path = Path(args.export_pipeline)
+    if mesh is not None and mesh.rank != 0:
+        barrier(mesh)
+        return json.loads(path.with_suffix(path.suffix + ".json").read_text())
     model, _ = common.build_ssd(args, Path(args.result_dir) / "detection" / args.weights)
     if args.full_int8:
-        model = common.apply_int8(args, model, _dataset(args), resolve_device(args.device))
+        model = common.apply_int8(args, model, _dataset(args),
+                                  mesh.device if mesh is not None else resolve_device(args.device))
     elif args.trunk_int8:
         model = common.apply_trunk_int8(args, model)
     meta = export_detection_pipeline(
@@ -199,6 +213,7 @@ def _export(args) -> dict:
         platforms=tuple(p.strip() for p in args.export_platforms.split(",") if p.strip()), d2h_half=args.d2h_half)
     print(f"exported {meta['bytes'] / 1e6:.1f} MB pipeline artifact to {args.export_pipeline} "
           f"(platforms {meta['platforms']})")
+    barrier(mesh)
     return meta
 
 

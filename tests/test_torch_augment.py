@@ -25,7 +25,7 @@ from object_detection_torch2_tpu_torch.models.ssd import SSD
 from object_detection_torch2_tpu_torch.train.optimizer import adam_torch
 from object_detection_torch2_tpu_torch.train.trainer import Trainer, step_generator
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 DTYPES = {"float32": (torch.float32, jnp.float32), "bfloat16": (torch.bfloat16, jnp.bfloat16)}
 N, H, W = 4, 40, 56

@@ -18,7 +18,7 @@ from object_detection_torch2_tpu_torch.data.labelmap import LabelMap
 from object_detection_torch2_tpu_torch.models.ssd import normalize_image
 from object_detection_torch2_tpu_torch.ops import scores
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 
 def _t(x):

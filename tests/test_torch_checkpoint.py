@@ -24,7 +24,7 @@ from object_detection_torch2_tpu_torch.models.ssd import SSD
 from object_detection_torch2_tpu_torch.train import _msgpack
 from object_detection_torch2_tpu_torch.train import checkpoint as ckpt
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 IMSIZE = 264
 

@@ -34,7 +34,7 @@ from object_detection_torch2_tpu_torch.models.vgg16 import VGG16, vgg_trainable_
 from object_detection_torch2_tpu_torch.train.optimizer import adam_torch, exponential_epoch_schedule
 from object_detection_torch2_tpu_torch.train.trainer import Trainer
 
-torch.set_num_threads(3)
+torch.set_num_threads(1)
 
 
 def _fingerprints(*named_trees, k: int = 8):

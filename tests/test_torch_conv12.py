@@ -22,7 +22,7 @@ from object_detection_torch2_tpu_torch.models.ssd import SSD
 from object_detection_torch2_tpu_torch.ops import conv12_cuda
 from object_detection_torch2_tpu_torch.ops.conv12 import conv12, conv12_backward, conv12_plain
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 
 @pytest.fixture(autouse=True)

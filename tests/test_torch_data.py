@@ -18,6 +18,8 @@ from object_detection_torch2_tpu_torch.data.loader import DataLoader
 from object_detection_torch2_tpu_torch.data.records import RecordDataset, pack_voc
 from object_detection_torch2_tpu_torch.data.voc import PascalVOCDataset, collate
 
+torch.set_num_threads(1)
+
 FIXTURE = Path(__file__).parent / "fixtures" / "voc" / "VOCtest"
 
 

@@ -23,7 +23,7 @@ from object_detection_torch2_tpu_torch.models.ssd import SSD
 from object_detection_torch2_tpu_torch.train.optimizer import adam_torch
 from object_detection_torch2_tpu_torch.train.trainer import Trainer
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 FIXTURE = Path(__file__).parent / "fixtures" / "voc" / "VOCtest"
 IMSIZE = 264

@@ -21,7 +21,7 @@ from object_detection_torch2_tpu_torch.metrics.assign import detection_matches
 from object_detection_torch2_tpu_torch.ops.scores import expand_detections, top_k_detections
 from object_detection_torch2_tpu_torch.utils.report import write_report
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 
 def _port_matches(outputs, gts):

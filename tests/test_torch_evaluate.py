@@ -24,7 +24,7 @@ from object_detection_torch2_tpu_torch.data.records import pack_voc
 from object_detection_torch2_tpu_torch.models.convert import ssd_state_dict_from_jax_variables
 from object_detection_torch2_tpu_torch.models.ssd import SSD
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 IMSIZE = 264  # the smallest valid SSD pyramid
 BATCH = 3

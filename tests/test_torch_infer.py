@@ -15,7 +15,7 @@ from object_detection_torch2_tpu_torch.infer import Predictor, build_detection_p
 from object_detection_torch2_tpu_torch.models.convert import ssd_state_dict_from_jax_variables
 from object_detection_torch2_tpu_torch.models.ssd import SSD
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 IMSIZE = 264  # the smallest valid SSD pyramid
 

@@ -19,7 +19,7 @@ from object_detection_torch2_tpu_torch.infer import build_detection_pipeline, un
 from object_detection_torch2_tpu_torch.models.ssd import SSD
 from object_detection_torch2_tpu_torch.utils import render
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 IMSIZE = 264
 BATCH = 3  # the fixture's 4 images: a full batch and a ragged one
@@ -131,21 +131,71 @@ def test_cli_needs_pil(tmp_path, monkeypatch):
         inference.main(CLI_ARGS + ["--data_dirs", str(FIXTURE), "--result_dir", str(tmp_path)])
 
 
+def _export(tmp_path, *flags):
+    """`cli.inference --export_pipeline <tmp_path>/x.bin --export_platforms
+    cpu` with `flags` (the metadata it returns is the artifact's): the
+    reloaded artifact's outputs on one seeded ragged batch, 2 real rows of
+    3."""
+    from object_detection_torch2_tpu_torch.serving import load_detection_pipeline
+
+    path = tmp_path / "x.bin"
+    out = inference.main(CLI_ARGS + ["--data_dirs", str(FIXTURE), "--result_dir", str(tmp_path),
+                                     "--export_pipeline", str(path), "--export_platforms", "cpu", *flags])
+    run, meta = load_detection_pipeline(path, device="cpu")
+    assert out["export"] == meta and meta["batch_size"] == BATCH
+    assert not (tmp_path / "detection").exists()
+    images = np.random.default_rng(3).integers(0, 256, (BATCH, IMSIZE, IMSIZE, 3), dtype=np.uint8)
+    return run(images, 2)
+
+
+@pytest.fixture(scope="module")
+def one_process_export(tmp_path_factory):
+    return _export(tmp_path_factory.mktemp("export_one"))
+
+
 @pytest.mark.parametrize("flags,item", [(["--distributed"], "G"), (["--num_devices", "2"], "G")])
-def test_cli_unported_flags_raise(tmp_path, flags, item):
-    """The flags of ROADMAP Queue 1 item G (data parallelism), ported: the
-    refusals that remain. --distributed without torchrun's environment
-    raises; --export_pipeline writes one single-device artifact, so with
-    --num_devices 2 it raises (tests/test_torch_parallel_cli.py runs the
-    inference on 2 processes)."""
-    argv = CLI_ARGS + ["--data_dirs", str(FIXTURE), "--result_dir", str(tmp_path)] + flags
+def test_cli_unported_flags_raise(tmp_path, flags, item, monkeypatch, one_process_export):
+    """The flags of ROADMAP Queue 1 item G (data parallelism), ported:
+    --distributed without torchrun's environment raises; --export_pipeline
+    with --num_devices 2 writes the one single-device artifact the JAX CLI
+    writes, from this process (nothing is launched), and its reloaded
+    outputs equal the one-process artifact's
+    (tests/test_torch_parallel_cli.py runs the inference on 2
+    processes)."""
+    from object_detection_torch2_tpu_torch.cli import common
+
     if flags == ["--distributed"]:
         with pytest.raises(RuntimeError, match="torchrun"):
-            inference.main(argv)
+            inference.main(CLI_ARGS + ["--data_dirs", str(FIXTURE), "--result_dir", str(tmp_path)] + flags)
+        assert not (tmp_path / "detection").exists()
     else:
-        with pytest.raises(ValueError, match="single-device artifact"):
-            inference.main(argv + ["--export_pipeline", str(tmp_path / "x.bin"), "--export_platforms", "cpu"])
-    assert item == "G" and not (tmp_path / "x.bin").exists()
+        monkeypatch.setattr(common, "launch", lambda *a, **k: pytest.fail("--export_pipeline launched ranks"))
+        for got, want in zip(_export(tmp_path, *flags), one_process_export):
+            assert torch.equal(got, want)
+    assert item == "G"
+
+
+def test_cli_export_under_a_distributed_world_of_one(tmp_path, monkeypatch, one_process_export):
+    """--export_pipeline --distributed under torchrun's environment for a
+    world of one (gloo on the CPU): rank 0 writes the artifact, whose
+    reloaded outputs equal the one-process artifact's, and the process group
+    is left. The JAX CLI's --distributed checks hold before the export."""
+    import socket
+
+    import torch.distributed as dist
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    for var, value in (("RANK", "0"), ("WORLD_SIZE", "1"), ("LOCAL_RANK", "0"), ("MASTER_ADDR", "127.0.0.1"),
+                       ("MASTER_PORT", str(port))):
+        monkeypatch.setenv(var, value)
+    for got, want in zip(_export(tmp_path, "--distributed"), one_process_export):
+        assert torch.equal(got, want)
+    assert not dist.is_initialized()
+    with pytest.raises(ValueError, match="--num_devices 2 unsupported with --distributed"):
+        _export(tmp_path / "x", "--distributed", "--num_devices", "2")
+    assert not dist.is_initialized() and not (tmp_path / "x").exists()
 
 
 @pytest.mark.parametrize("flag", ["--trunk_int8", "--full_int8"])

@@ -29,7 +29,7 @@ from object_detection_torch2_tpu_torch.models import ssd as ssd_mod
 from object_detection_torch2_tpu_torch.models.ssd import SSD
 from object_detection_torch2_tpu_torch.serving import load_detection_pipeline
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 IMSIZE = 264
 FIXTURE = Path(__file__).parent / "fixtures" / "voc" / "VOCtest"

@@ -19,7 +19,7 @@ from object_detection_torch2_tpu_torch.models.ssd import SSD
 from object_detection_torch2_tpu_torch.ops import quantize_act_cuda, registry
 from object_detection_torch2_tpu_torch.ops.int8_conv import int8_conv, pack_weight, quantize_act
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 IMSIZE = 64
 TRUNK = ("2_1", "2_2", "3_1", "3_2", "3_3", "4_1", "4_2", "4_3", "5_1", "5_2", "5_3")

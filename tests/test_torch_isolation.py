@@ -4,7 +4,8 @@ kernel_times.py) and not in its
 sources (an AST scan of every import statement). Importing it also loads
 none of the packages it does not depend on (PIL, msgpack, tqdm); PIL is
 imported only inside the functions that decode images (the raw-VOC dataset)
-or draw them (utils/render.py)."""
+or draw them (utils/render.py). Every port test module caps torch's
+intra-op threads (an AST scan)."""
 
 import ast
 import subprocess
@@ -12,6 +13,9 @@ import sys
 from pathlib import Path
 
 import pytest
+import torch
+
+torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "object_detection_torch2_tpu_torch"
@@ -114,3 +118,31 @@ def test_pil_only_inside_raw_voc_functions():
                 assert path in allowed and id(node) in inside, f"{where} imports PIL"
                 seen.append(where)
     assert len(seen) == 2, f"PIL is expected in the raw-VOC decode and the drawing, found {seen}"
+
+
+# the card's tests need the whole host (tests/test_torch_cuda.py skips on the CPU)
+THREADS_UNCAPPED = {"test_torch_cuda.py"}
+TEST_THREADS = 1
+
+
+def test_every_port_test_module_caps_torch_threads():
+    """Each tests/test_torch_*.py module calls
+    torch.set_num_threads(TEST_THREADS) at its top level. The tier-1 run puts
+    6 xdist workers on 8 cores beside XLA's own thread pools: the machine is
+    saturated, and a second intra-op thread adds CPU time (OpenMP spin-waits)
+    that it has none to spare for. One value everywhere, because every worker
+    imports every module when it collects, and the last import's call holds
+    for the whole run; `mesh.launch` gives each CPU rank a share of it (at
+    least 1). Parsed, not imported."""
+    wrong = []
+    modules = sorted(Path(__file__).parent.glob("test_torch_*.py"))
+    assert Path(__file__) in modules and len(modules) > 20
+    for path in modules:
+        if path.name in THREADS_UNCAPPED:
+            continue
+        caps = [ast.unparse(node.value) for node in ast.parse(path.read_text(), str(path)).body
+                if isinstance(node, ast.Expr) and isinstance(node.value, ast.Call)
+                and ast.unparse(node.value.func) == "torch.set_num_threads"]
+        if caps != [f"torch.set_num_threads({TEST_THREADS})"]:
+            wrong.append((path.name, caps))
+    assert not wrong, f"each module needs one top-level torch.set_num_threads({TEST_THREADS}): {wrong}"

@@ -19,7 +19,7 @@ from object_detection_torch2_tpu_torch.models.convert import (
 )
 from object_detection_torch2_tpu_torch.models.ssd import SSD
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 
 def _bn_case(seed, n=6, h=5, w=7, c=8):

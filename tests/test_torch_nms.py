@@ -15,7 +15,7 @@ from object_detection_torch2_tpu.ops import nms as jax_nms
 from object_detection_torch2_tpu.ops.nms_pallas import nms_keep_mask_pallas
 from object_detection_torch2_tpu_torch.ops import _build, nms, nms_cuda
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 
 def _with_interpret(fn):

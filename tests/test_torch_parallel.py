@@ -7,7 +7,9 @@ One 2-rank cluster serves the module: `_rank_checks` runs every check on
 both ranks (BatchNorm, the SSD's gradients and SGD steps, an augmented step,
 an int8-trunk step, the AP merge, the world-1 comparisons) and returns the
 results, which the tests compare with the same work done here in one
-process. The ranks meet through a FileStore; the cluster has a hard timeout.
+process. The cluster starts before anything else of the module, so it runs
+while this process computes the JAX package's references and its own. The
+ranks meet through a FileStore; the cluster has a hard timeout.
 This module imports nothing of JAX at its top: the ranks import it.
 
 Tolerances are the JAX package's own for its 1-vs-8-device test
@@ -36,6 +38,8 @@ from object_detection_torch2_tpu_torch.parallel import mesh as mesh_lib
 from object_detection_torch2_tpu_torch.parallel.mesh import Mesh, all_reduce_mean_, local_rows
 from object_detection_torch2_tpu_torch.train.optimizer import adam_torch, exponential_epoch_schedule
 from object_detection_torch2_tpu_torch.train.trainer import Trainer
+
+torch.set_num_threads(1)
 
 FIXTURE = Path(__file__).parent / "fixtures" / "voc" / "VOCtest"
 IMSIZE = 264  # the smallest SSD pyramid
@@ -243,15 +247,29 @@ def _world1_checks(w1) -> dict:
     return differ
 
 
-def _rank_checks(mesh, ssd_state_dict) -> dict:
-    """Everything one rank of the 2-rank cluster computes."""
+def _wait_for(path: Path, timeout: float = CLUSTER_TIMEOUT):
+    """The object this module's process saves at `path` (atomically, by a
+    rename), once it is there."""
+    import time
+
+    deadline = time.monotonic() + timeout
+    while not path.exists():
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"{path} not written after {timeout} s")
+        time.sleep(0.2)
+    return torch.load(path, weights_only=True)
+
+
+def _rank_checks(mesh, handoff: str) -> dict:
+    """Everything one rank of the 2-rank cluster computes. The run from the
+    JAX package's seeded variables comes last: this module's process writes
+    their state_dict to `handoff` while the ranks compute the rest."""
     import torch.distributed as dist
 
     out = {"bn": {case: _bn_run(mesh, mask) for case, mask in BN_MASKS.items()},
            "ap": {case: _ap_run(mesh, split) for case, split in AP_SPLITS.items()},
            "predict": _predict_run(mesh), "stack": _stack_run(mesh), "ssd64": _ssd_run(mesh, dtype=torch.float64),
-           "ssd": _ssd_run(mesh, ssd_state_dict, batch=_fixture_batch), "aug": _aug_run(mesh),
-           "int8": _int8_run(mesh)}
+           "aug": _aug_run(mesh), "int8": _int8_run(mesh)}
     # models that differ between the ranks are refused
     probe = torch.nn.Linear(3, 2)
     torch.nn.init.constant_(probe.weight, float(mesh.rank))
@@ -263,6 +281,7 @@ def _rank_checks(mesh, ssd_state_dict) -> dict:
     single, _ = dist.new_subgroups(group_size=1)  # collective: a group of one for each rank
     if mesh.rank == 0:
         out["world1"] = _world1_checks(mesh_lib.make_mesh("cpu", group=single))
+    out["ssd"] = _ssd_run(mesh, _wait_for(Path(handoff)), batch=_fixture_batch)
     return out
 
 
@@ -270,10 +289,25 @@ def _rank_checks(mesh, ssd_state_dict) -> dict:
 
 
 @pytest.fixture(scope="module")
-def jax_init():
+def cluster(tmp_path_factory):
+    """The 2-rank cluster's results, as a future, and the path where
+    `jax_init` hands the ranks their starting state_dict: the cluster starts
+    first and runs while this process computes its references."""
+    handoff = tmp_path_factory.mktemp("handoff") / "jax_init.pt"
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    future = pool.submit(mesh_lib.launch, _rank_checks, WORLD, (str(handoff),), device_type="cpu",
+                         timeout=CLUSTER_TIMEOUT)
+    yield future, handoff
+    future.result(timeout=CLUSTER_TIMEOUT)
+    pool.shutdown()
+
+
+@pytest.fixture(scope="module")
+def jax_init(cluster):
     """The JAX package's seeded SSD variables (PRNGKey(0)), and the port's
-    state_dict holding them: the full-SSD runs start from these, as the port
-    against the JAX package's single device does (tests/test_torch_train_cli.py).
+    state_dict holding them, handed to the cluster's ranks too: the full-SSD
+    runs start from these, as the port against the JAX package's single
+    device does (tests/test_torch_train_cli.py).
     The port's own torch init is not used there: on it the JAX package's BN
     output form, x * inv + (bias - mean * inv), cancels in the deep extras
     (models/bn.py) and the two packages' losses part by ~1%."""
@@ -287,24 +321,16 @@ def jax_init():
     variables = jax.jit(lambda k: model.init(k, jnp.zeros((1, IMSIZE, IMSIZE, 3)), train=False))(
         jax.random.PRNGKey(0))
     variables = jax.tree.map(np.asarray, {"params": variables["params"], "batch_stats": variables["batch_stats"]})
-    return variables, ssd_state_dict_from_jax_variables(variables)
+    state_dict = ssd_state_dict_from_jax_variables(variables)
+    handoff = cluster[1]
+    torch.save(state_dict, handoff.with_suffix(".part"))
+    handoff.with_suffix(".part").rename(handoff)
+    return variables, state_dict
 
 
 @pytest.fixture(scope="module")
-def cluster(jax_init):
-    """The 2-rank cluster's results, as a future: it runs while this process
-    computes its references."""
-    pool = concurrent.futures.ThreadPoolExecutor(1)
-    future = pool.submit(mesh_lib.launch, _rank_checks, WORLD, (jax_init[1],), device_type="cpu",
-                         timeout=CLUSTER_TIMEOUT)
-    yield future
-    future.result(timeout=CLUSTER_TIMEOUT)
-    pool.shutdown()
-
-
-@pytest.fixture(scope="module")
-def ranks(cluster):
-    return cluster.result(timeout=CLUSTER_TIMEOUT)
+def ranks(cluster, jax_init):
+    return cluster[0].result(timeout=CLUSTER_TIMEOUT)
 
 
 @pytest.fixture(scope="module")
@@ -378,7 +404,7 @@ def test_full_ssd_two_ranks_match_the_jax_mesh_and_one_rank(cluster, jax_init, j
     1-rank port's. The extras' float32 gradients are held through the
     parameters (see the float64 test for why not elementwise)."""
     one = _ssd_run(None, jax_init[1], batch=_fixture_batch)
-    two = cluster.result(timeout=CLUSTER_TIMEOUT)[0]["ssd"]
+    two = cluster[0].result(timeout=CLUSTER_TIMEOUT)[0]["ssd"]
     jx = jax_mesh_run
     heads = [k for k in two["grads"] if k.startswith("detectors.") and one["grads"][k].abs().max() > 0]
     # port against port
@@ -405,7 +431,7 @@ def test_full_ssd_two_ranks_match_the_jax_mesh_and_one_rank(cluster, jax_init, j
         assert (np.abs(got - want) <= np.abs(single - want) + 1e-5 + 1e-3 * np.abs(single)).all(), name
 
 
-def test_full_ssd_float64_two_ranks_equal_one_rank(cluster):
+def test_full_ssd_float64_two_ranks_equal_one_rank(cluster, jax_init):
     """The full SSD at imsize 264, global batch 4 (the JAX package's DP test
     data), SGD, computing in float64 (`SSD(dtype=torch.float64)`): 2 ranks
     against 1 rank over the whole batch. The gradients through the synced
@@ -424,7 +450,7 @@ def test_full_ssd_float64_two_ranks_equal_one_rank(cluster):
     (the moments' all-reduce backward and the one mean of the gradients) are
     held exactly."""
     one = _ssd_run(None, dtype=torch.float64)
-    two = cluster.result(timeout=CLUSTER_TIMEOUT)[0]["ssd64"]
+    two = cluster[0].result(timeout=CLUSTER_TIMEOUT)[0]["ssd64"]
     _close(two["grads"], one["grads"], rtol=1e-6, atol=1e-8)
     np.testing.assert_allclose(two["losses"], one["losses"], rtol=1e-5)
     _close(two["params"], one["params"], rtol=1e-4, atol=4e-6)

@@ -23,6 +23,8 @@ from object_detection_torch2_tpu_torch.infer import Predictor
 from object_detection_torch2_tpu_torch.models.ssd import SSD
 from object_detection_torch2_tpu_torch.train import checkpoint as ckpt
 
+torch.set_num_threads(1)
+
 FIXTURE = Path(__file__).parent / "fixtures" / "voc" / "VOCtest"
 IMSIZE = 264
 BATCH = 4

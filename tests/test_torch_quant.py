@@ -33,7 +33,7 @@ from object_detection_torch2_tpu_torch.models.ssd import SSD
 from object_detection_torch2_tpu_torch.ops.int8_conv import int8_conv, int8_conv_plain, pack_weight
 from object_detection_torch2_tpu_torch.train.trainer import Trainer
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 IMSIZE = 64  # trunk-only tests (up_to="5_3"); 264 is the smallest full pyramid
 FULL_IMSIZE = 264

@@ -22,7 +22,7 @@ from object_detection_torch2_tpu_torch.ops.conv12 import conv12_plain
 from object_detection_torch2_tpu_torch.serving import export_detection_pipeline, load_detection_pipeline
 from object_detection_torch2_tpu_torch.utils.hostsync import FetchPipeline
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parent.parent
 IMSIZE = 264  # the smallest valid SSD pyramid
@@ -188,11 +188,14 @@ def test_export_refusals(tmp_path):
 
 def test_load_imports_no_model_code(exported):
     """A fresh interpreter loads and runs the artifact with the op
-    registrations alone: no module of the port's models is imported."""
+    registrations alone: no module of the port's models is imported. It runs
+    at this process's intra-op thread count: oneDNN's float32 convolutions
+    sum in another order on one thread than on several."""
     path, _, live, images = exported
     np.save(path.parent / "images.npy", images)
     code = (
-        "import sys, numpy as np\n"
+        "import sys, numpy as np, torch\n"
+        f"torch.set_num_threads({torch.get_num_threads()})\n"
         "from object_detection_torch2_tpu_torch.serving import load_detection_pipeline\n"
         f"run, meta = load_detection_pipeline({str(path)!r}, device='cpu')\n"
         f"packed, n_valid = run(np.load({str(path.parent / 'images.npy')!r}), 2)\n"

@@ -31,7 +31,7 @@ from object_detection_torch2_tpu_torch.train.optimizer import adam_torch, expone
 from object_detection_torch2_tpu_torch.train.state import TrainState
 from object_detection_torch2_tpu_torch.train.trainer import Trainer
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 IMSIZE = 264  # the smallest size the anchor pyramid takes
 

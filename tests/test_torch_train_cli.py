@@ -32,7 +32,7 @@ from object_detection_torch2_tpu_torch.models.convert import jax_path, jax_varia
 from object_detection_torch2_tpu_torch.train import checkpoint as ckpt
 from object_detection_torch2_tpu_torch.utils.tb import _masked_crc
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 IMSIZE = 264
 FIXTURE = Path(__file__).parent / "fixtures" / "voc" / "VOCtest"

@@ -13,6 +13,8 @@ from object_detection_torch2_tpu.utils import profiling as jax_profiling
 from object_detection_torch2_tpu.utils import tb as jax_tb
 from object_detection_torch2_tpu_torch.utils import profiling, tb
 
+torch.set_num_threads(1)
+
 
 def _write_events(module, log_dir, monkeypatch):
     clock = iter(np.arange(1.7e9, 1.7e9 + 100, 0.25))

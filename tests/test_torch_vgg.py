@@ -23,7 +23,7 @@ from object_detection_torch2_tpu_torch.models import convert
 from object_detection_torch2_tpu_torch.models.vgg16 import VGG16, cross_entropy, dropout, vgg_trainable_predicate
 from object_detection_torch2_tpu_torch.train import checkpoint as ckpt
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 
 def _nhwc(x_nchw):
