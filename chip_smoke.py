@@ -1,7 +1,7 @@
 """Drives the PyTorch/CUDA port's serving, evaluation and training paths, its
 training (both purposes), inference and evaluation CLIs, its serving
-plumbing, its exported pipeline, its int8 paths and its data parallelism on
-one CUDA card, and checks them.
+plumbing, its exported pipeline, its int8 paths, its data parallelism and
+its accuracy proofs on one CUDA card, and checks them.
 
     python3 chip_smoke.py [--out results.json]
 
@@ -152,7 +152,15 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    statistics, each on ground truth planted on that model's own detections:
    parity mAP 1.0 on both ranks as in one process, 3 NMS launches a rank and
    33 of each int8 kernel a rank with --trunk_int8;
-18. the kernels line (JSON; launches summed over the paths that ran each
+18. proofs (object_detection_torch2_tpu_torch/tools/): the overfit,
+   generalization, pretrained-trunk and int8-budget proofs through their
+   `main` at smoke size (overfit 3 epochs on the fixture; the others on 32 +
+   8 synthetic images, 2 epochs a stage), each with every launch count reset
+   just before and read just after: its JSON written with finite mAPs and
+   the launches read here, the conv12 kernel in every training stage, the
+   NMS kernel in every evaluation, both int8 kernels in the int8 stages,
+   the .pth round trip lossless; no threshold held (the full runs' is);
+19. the kernels line (JSON; launches summed over the paths that ran each
    kernel, by path, the data-parallel paths' summed over ranks), then the last line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
@@ -2436,6 +2444,128 @@ def phase_data_parallel(card: str) -> dict:
     return res
 
 
+PROOF_N_TRAIN, PROOF_N_TEST, PROOF_EPOCHS = 32, 8, 2  # the proofs at smoke size (overfit: 3 epochs)
+
+
+def reset_launches():
+    """Every hand-written kernel's launch count set to 0."""
+    from object_detection_torch2_tpu_torch.ops import conv12_cuda, int8_conv_cuda, nms_cuda, quantize_act_cuda
+
+    nms_cuda.launches = 0
+    conv12_cuda.launches = 0
+    conv12_cuda.kernel_launches.update(dict.fromkeys(conv12_cuda.kernel_launches, 0))
+    int8_conv_cuda.kernel_launches = 0
+    quantize_act_cuda.kernel_launches = 0
+
+
+def proof_run(name: str, module, argv: list, out_dir: Path, card: str) -> dict:
+    """One proof's `main(argv)` on the card, every launch count set to 0
+    just before and read just after: its exit code (1 below its threshold,
+    which smoke size does not reach), seconds, launches, and its JSON,
+    checked for finite mAPs and launch counts equal to those read here."""
+    from object_detection_torch2_tpu_torch.tools import common
+
+    reset_launches()
+    t0 = time.perf_counter()
+    rc = module.main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = common.launch_counts()
+    record = json.loads((out_dir / f"{name}.json").read_text())
+    if rc not in (0, 1) or record["kernel_launches"] != launches:
+        raise AssertionError(f"proof {name}: exit code {rc}, launches {launches}, its record's "
+                             f"{record['kernel_launches']}")
+    if record["environment"]["card"] != card:
+        raise AssertionError(f"proof {name}: card {record['environment']['card']!r}, expected {card!r}")
+    maps = {k: v for k, v in record.items() if k.startswith(("parity_mAP", "strict_mAP"))}
+    if name == "int8_budget":
+        ab = record["same_weights_eval_ab"]
+        maps = {f"{arm}.{k}": ab[arm][k] for arm in ("float_trunk", "int8_trunk_serving", "full_int8_serving")
+                for k in ("parity_mAP", "strict_mAP")}
+        q = record["trained_with_int8_arm"]
+        maps.update({"int8_arm.parity_mAP": q["parity_mAP"], "int8_arm.strict_mAP": q["strict_mAP"],
+                     "cosine": record["trunk_feature_drift_int8_vs_float"]["cosine"]})
+    if len(maps) < 2 or not all(v is not None and np.isfinite(v) for v in maps.values()):
+        raise AssertionError(f"proof {name}: mAPs {maps}")
+    for stage, row in record["stages"].items():
+        n = row["launches"]
+        if stage.startswith(("train", "pretrain")) and n["conv12_bf16"] == 0:
+            raise AssertionError(f"proof {name}: stage {stage} trained without the conv12 kernel: {n}")
+        if stage.startswith("eval") and n["nms_keep_sorted"] == 0:
+            raise AssertionError(f"proof {name}: stage {stage} evaluated without the NMS kernel: {n}")
+        if stage in ("drift", "eval_trunk_int8", "eval_full_int8", "train_int8", "eval_int8_arm") and (
+                n["int8_conv"] == 0 or n["quantize_act"] == 0):
+            raise AssertionError(f"proof {name}: int8 stage {stage} without the int8 kernels: {n}")
+    print(f"proof {name} (smoke size): exit {rc}, {seconds:.1f} s, {maps}, launches {launches}; stages "
+          f"{ {k: v['seconds'] for k, v in record['stages'].items()} } ({card})")
+    return {"rc": rc, "seconds": seconds, "launches": launches, "maps": maps, "stages": record["stages"]}
+
+
+def phase_proofs(card: str) -> dict:
+    """The four accuracy proofs (object_detection_torch2_tpu_torch/tools/) at
+    smoke size through their `main`: the overfit proof for 3 epochs on the
+    fixture; generalization (--use_records --train_aug reduced_hue, the
+    committed run's settings), the pretrained trunk (--trunk_source
+    detection, with its .pth round trip) and the int8 budget on 32 + 8
+    synthetic images for 2 epochs each stage, with --num_workers 0. No
+    threshold is held: that is
+    the full runs' (proofs_torch/). Their JSON, temporary data and weights
+    go to a temporary directory."""
+    from object_detection_torch2_tpu_torch.tools import (
+        common,
+        generalization_proof,
+        int8_budget,
+        overfit_proof,
+        pretrained_trunk_proof,
+    )
+    from object_detection_torch2_tpu_torch.tools.synth_voc import generate
+
+    saved = common.PROOFS_DIR, tempfile.tempdir
+    res = {}
+    t0 = time.perf_counter()
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            tmp = Path(tmp)
+            common.PROOFS_DIR, tempfile.tempdir = tmp / "proofs", str(tmp)
+            data = str(generate(tmp / "data", PROOF_N_TRAIN, PROOF_N_TEST, seed=0))
+            # decode in the loader's thread: at smoke size a spawned worker
+            # pool's start-up (~6 s a loader) would be most of the phase
+            size = ["--n_train", str(PROOF_N_TRAIN), "--n_test", str(PROOF_N_TEST), "--data_dir", data,
+                    "--num_workers", "0"]
+            res["overfit"] = proof_run("overfit", overfit_proof, ["--epochs", "3", "--result_dir", str(tmp / "of")],
+                                       tmp / "proofs", card)
+            res["generalization"] = proof_run(
+                "generalization", generalization_proof,
+                size + ["--epochs", str(PROOF_EPOCHS), "--use_records", "--train_aug", "reduced_hue",
+                        "--result_dir", str(tmp / "gen")], tmp / "proofs", card)
+            res["pretrained_trunk"] = proof_run(
+                "pretrained_trunk", pretrained_trunk_proof,
+                size + ["--trunk_source", "detection", "--pretrain_epochs", str(PROOF_EPOCHS),
+                        "--det_epochs", str(PROOF_EPOCHS), "--result_dir", str(tmp / "trunk")], tmp / "proofs", card)
+            trip = json.loads((tmp / "proofs" / "pretrained_trunk.json").read_text())["pth_round_trip"]
+            if not trip["lossless"] or trip["trunk_layers"] != 26:
+                raise AssertionError(f"pretrained trunk proof: .pth round trip {trip}")
+            res["pretrained_trunk"]["pth_round_trip"] = trip
+            res["int8_budget"] = proof_run(
+                "int8_budget", int8_budget,
+                size + ["--pretrain_epochs", str(PROOF_EPOCHS), "--det_epochs", str(PROOF_EPOCHS),
+                        "--work_dir", str(tmp / "int8")], tmp / "proofs", card)
+    finally:
+        common.PROOFS_DIR, tempfile.tempdir = saved
+    res["seconds"] = time.perf_counter() - t0
+    print(f"proofs phase: {res['seconds']:.1f} s ({card})")
+    torch.cuda.empty_cache()
+    return res
+
+
+def proof_launches(proofs: dict) -> dict:
+    """Each kernel's launches over the four proofs' smoke runs."""
+    from object_detection_torch2_tpu_torch.tools.common import KERNELS
+
+    return {k: sum(proofs[name]["launches"][k] for name in ("overfit", "generalization", "pretrained_trunk",
+                                                             "int8_budget")) for k in KERNELS}
+
+
 def dp_launches(dp: dict) -> dict:
     """Each kernel's launches on the data-parallel paths, summed over ranks."""
     ev = dp["gloo_evaluate"]
@@ -2594,6 +2724,13 @@ def main(argv=None) -> int:
                      (entries[1]["bfloat16"], dp["conv12_bf16"]), (entries[2], dp["int8_conv"]),
                      (entries[3], dp["quantize_act"])):
         entry["launches_by_path"]["data_parallel"] = n
+        entry["launches"] += n
+    results["proofs"] = phase_proofs(card)
+    pr = proof_launches(results["proofs"])
+    for entry, n in ((entries[0], pr["nms_keep_sorted"]), (entries[1], pr["conv12"]),
+                     (entries[1]["bfloat16"], pr["conv12_bf16"]), (entries[2], pr["int8_conv"]),
+                     (entries[3], pr["quantize_act"])):
+        entry["launches_by_path"]["proofs"] = n
         entry["launches"] += n
     results["kernels"] = entries
     if args.out:

@@ -1,0 +1,14 @@
+"""The port's accuracy proofs and weight bridges, named after their
+counterparts in the repo's root `tools/` (which the port never imports).
+Each is a thin layer over the port's CLIs and runs on the CUDA card unless
+`--device cpu` is given:
+
+- `synth_voc`: the synthetic VOC-format shape scenes (byte-equal to the
+  root generator's for the same arguments);
+- `torch_to_npz`, `export_torch`: a reference `.pth` <-> weights.msgpack;
+- `overfit_proof`, `generalization_proof`, `pretrained_trunk_proof`,
+  `int8_budget`: training to an AP number and the int8 paths' cost on
+  trained weights, each writing `proofs_torch/<name>.json` (`common`).
+
+    python -m object_detection_torch2_tpu_torch.tools.<module> [--device cpu] ...
+"""

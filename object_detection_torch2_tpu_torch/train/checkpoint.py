@@ -37,10 +37,12 @@ from object_detection_torch2_tpu_torch.train import _msgpack
 
 def save_weights(path, model):
     """Write `model`'s (an `SSD` or a `VGG16`) weights as the JAX package's
-    weights.msgpack."""
+    weights.msgpack; `model` may also be such a {"params", "batch_stats"}
+    tree itself (numpy or tensor leaves), as the JAX package's
+    `save_weights` takes it."""
     path = Path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
-    data = _msgpack.packb(jax_variables_of(model))
+    data = _msgpack.packb(model if isinstance(model, dict) else jax_variables_of(model))
     with open(path, "wb") as f:
         f.write(data)
 

@@ -1,6 +1,7 @@
-"""The port imports neither JAX nor the JAX package: not at run time (a fresh
-interpreter imports every module of the port, chip_smoke.py and
-kernel_times.py) and not in its
+"""The port imports neither JAX nor the JAX package, nor the repo's root
+`tools` package (the port has its own, object_detection_torch2_tpu_torch/tools/):
+not at run time (a fresh interpreter imports every module of the port,
+chip_smoke.py and kernel_times.py) and not in its
 sources (an AST scan of every import statement). Importing it also loads
 none of the packages it does not depend on (PIL, msgpack, tqdm); PIL is
 imported only inside the functions that decode images (the raw-VOC dataset)
@@ -19,7 +20,8 @@ torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "object_detection_torch2_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "object_detection_torch2_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "object_detection_torch2_tpu",
+             "tools")  # the root tools package (the JAX package's scripts)
 # packages the port does not depend on
 NOT_DEPENDED_ON = ("PIL", "msgpack", "tqdm")
 
@@ -33,8 +35,29 @@ def _port_modules():
     return mods
 
 
+PORT_TOOLS = ("common", "synth_voc", "torch_to_npz", "export_torch", "overfit_proof", "generalization_proof",
+              "pretrained_trunk_proof", "int8_budget")
+
+
 def _forbidden(name: str) -> bool:
     return any(name == f or name.startswith(f + ".") for f in FORBIDDEN)
+
+
+def _forbidden_imports(source: str, filename: str = "<source>") -> list:
+    """(line, names) of each absolute import statement of `source` that
+    names a FORBIDDEN module."""
+    found = []
+    for node in ast.walk(ast.parse(source, filename)):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module]
+        else:
+            continue
+        bad = [n for n in names if _forbidden(n)]
+        if bad:
+            found.append((node.lineno, bad))
+    return found
 
 
 def test_import_pulls_in_no_jax():
@@ -43,6 +66,8 @@ def test_import_pulls_in_no_jax():
         assert f"object_detection_torch2_tpu_torch.cli.{cli}" in mods
     for mod in ("parallel", "parallel.mesh"):  # data parallelism on torch.distributed
         assert f"object_detection_torch2_tpu_torch.{mod}" in mods
+    for mod in PORT_TOOLS:  # the accuracy proofs and the .pth bridge
+        assert f"object_detection_torch2_tpu_torch.tools.{mod}" in mods
     # `import torch` itself tries tqdm (torch.hub) and goes on without it, so
     # those count only when the port's imports load them
     code = (
@@ -65,16 +90,26 @@ def test_import_pulls_in_no_jax():
 def test_sources_import_no_jax():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "kernel_times.py"]
     assert len(files) > 10
+    assert all(PORT / "tools" / f"{mod}.py" in files for mod in PORT_TOOLS)
     for path in files:
-        for node in ast.walk(ast.parse(path.read_text(), str(path))):
-            if isinstance(node, ast.Import):
-                names = [a.name for a in node.names]
-            elif isinstance(node, ast.ImportFrom) and node.level == 0:
-                names = [node.module]
-            else:
-                continue
-            bad = [n for n in names if _forbidden(n)]
-            assert not bad, f"{path.relative_to(ROOT)}:{node.lineno} imports {bad}"
+        bad = _forbidden_imports(path.read_text(), str(path))
+        assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+@pytest.mark.parametrize("source,flagged", [
+    ("import tools.synth_voc", True),
+    ("from tools import synth_voc", True),
+    ("from tools.export_torch import vgg16_state_dict", True),
+    ("import tools", True),
+    ("from object_detection_torch2_tpu_torch.tools import synth_voc", False),
+    ("from object_detection_torch2_tpu_torch.tools.common import FIXTURE", False),
+    ("import toolsmith", False),
+    ("from . import common", False),
+])
+def test_root_tools_import_is_flagged(source, flagged):
+    """The scan flags an import of the root `tools` package (the JAX
+    package's scripts) in any form, and not the port's own tools."""
+    assert bool(_forbidden_imports(source)) is flagged
 
 
 @pytest.mark.parametrize("cli", ["train", "inference"])
@@ -98,8 +133,8 @@ def test_cli_import_loads_no_pil_tqdm_or_msgpack(cli):
 
 def test_pil_only_inside_raw_voc_functions():
     """PIL is imported only inside a function of data/voc.py (the raw-VOC
-    decode) or of utils/render.py (the drawing), never at a module's top
-    level."""
+    decode), of utils/render.py (the drawing) or of tools/synth_voc.py (the
+    synthetic scenes), never at a module's top level."""
     seen = []
     for path in sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "kernel_times.py"]:
         tree = ast.parse(path.read_text(), str(path))
@@ -114,10 +149,10 @@ def test_pil_only_inside_raw_voc_functions():
                 continue
             if any(n == "PIL" or n.startswith("PIL.") for n in names):
                 where = f"{path.relative_to(ROOT)}:{node.lineno}"
-                allowed = (PORT / "data" / "voc.py", PORT / "utils" / "render.py")
+                allowed = (PORT / "data" / "voc.py", PORT / "utils" / "render.py", PORT / "tools" / "synth_voc.py")
                 assert path in allowed and id(node) in inside, f"{where} imports PIL"
                 seen.append(where)
-    assert len(seen) == 2, f"PIL is expected in the raw-VOC decode and the drawing, found {seen}"
+    assert len(seen) == 3, f"PIL is expected in the raw-VOC decode, the drawing and the scenes, found {seen}"
 
 
 # the card's tests need the whole host (tests/test_torch_cuda.py skips on the CPU)
