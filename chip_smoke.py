@@ -1,7 +1,8 @@
 """Drives the PyTorch/CUDA port's serving, evaluation and training paths, its
 training (both purposes), inference and evaluation CLIs, its serving
-plumbing, its exported pipeline, its int8 paths, its data parallelism and
-its accuracy proofs on one CUDA card, and checks them.
+plumbing, its exported pipeline (also served by tools/serve_artifact.py), its
+int8 paths, its data parallelism, its accuracy proofs and its reference-scale
+rehearsal on one CUDA card, and checks them.
 
     python3 chip_smoke.py [--out results.json]
 
@@ -160,7 +161,23 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    the launches read here, the conv12 kernel in every training stage, the
    NMS kernel in every evaluation, both int8 kernels in the int8 stages,
    the .pth round trip lossless; no threshold held (the full runs' is);
-19. the kernels line (JSON; launches summed over the paths that ran each
+19. serving from an artifact (tools/serve_artifact.py): the bfloat16
+   pipeline exported at batch 32 for cuda by `cli.inference
+   --export_pipeline`, served over 70 seeded records with the NMS launches
+   counted (3); PNG k pixel-equal to cli.inference's PNG k + 1,
+   detections.json equal to the rows of `Predictor`'s detections; a
+   `python -c` subprocess serves it without loading any module of the
+   port's models; the `--trunk_int8` artifact served, 11 launches of each
+   int8 kernel a batch and the int8 `Predictor`'s rows;
+20. the reference-scale rehearsal (tools/voc_scale_proof.py) at the root
+   tool's smoke size (512 / 96 images, 256 pretrain, 4 + 4 epochs, a 1 s
+   kill grace): the SIGKILL and the resume from the full state, no kernel
+   build during training, the float, --trunk_int8 and --full_int8
+   evaluations; its stages are subprocesses whose launch counts (each
+   starting at 0) come back in its record: conv12_bf16 in every training
+   run, NMS in every evaluation, both int8 kernels in the int8 arms; RSS and
+   device memory read; no threshold held (the full run's is);
+21. the kernels line (JSON; launches summed over the paths that ran each
    kernel, by path, the data-parallel paths' summed over ranks), then the last line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
@@ -2558,6 +2575,194 @@ def phase_proofs(card: str) -> dict:
     return res
 
 
+def artifact_rows(dets, labelmap) -> list:
+    """detections.json's rows (tools/serve_artifact.py) of Predictor's
+    detections: [image, class name, score, cx, cy, w, h], 5 decimals."""
+    return [[n, labelmap.id2name(int(c)), round(float(s), 5)] + [round(float(v), 5) for v in b]
+            for n, d in enumerate(dets) for b, c, s in zip(d.boxes, d.class_ids, d.scores) if s > 0 and c >= 0]
+
+
+def serve_artifact_run(artifact: Path, records: Path, out: Path) -> tuple:
+    """tools/serve_artifact.py over the records, every launch count set to 0
+    just before and read just after: (its result, seconds, launches, its
+    detections.json rows)."""
+    from object_detection_torch2_tpu_torch.tools import common, serve_artifact
+
+    reset_launches()
+    t0 = time.perf_counter()
+    out_main = serve_artifact.main(["--artifact", str(artifact), "--records_dir", str(records), "--out_dir", str(out)])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return out_main, seconds, common.launch_counts(), json.loads((out / "detections.json").read_text())
+
+
+def phase_serve_artifact(card: str) -> dict:
+    """tools/serve_artifact.py on the card: the bfloat16 pipeline exported at
+    batch 32 for cuda by `cli.inference --export_pipeline`, served over 70
+    seeded records (two full batches and a ragged one): 3 NMS launches, PNG k
+    pixel-equal to cli.inference's PNG k + 1, detections.json the rows of
+    Predictor's detections; a `python -c` subprocess serves it with no module
+    of the port's models loaded; the --trunk_int8 artifact served, with 11
+    int8 conv and 11 quantize launches a batch and the live int8 Predictor's
+    rows."""
+    from object_detection_torch2_tpu_torch.cli import inference
+    from object_detection_torch2_tpu_torch.data.labelmap import LabelMap
+    from object_detection_torch2_tpu_torch.infer import Predictor
+    from object_detection_torch2_tpu_torch.models import quant
+    from object_detection_torch2_tpu_torch.models.ssd import SSD
+    from object_detection_torch2_tpu_torch.utils.render import require_pil
+
+    Image, _ = require_pil()
+    images = np.random.default_rng(13).integers(0, 256, (N_IMAGES, IMSIZE, IMSIZE, 3), dtype=np.uint8)
+    n_batches = -(-N_IMAGES // BATCH)
+    labelmap = LabelMap("PascalVOC")
+    res = {}
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        records, result = tmp / "records", tmp / "result"
+        write_records(records, images, np.zeros((N_IMAGES, G_PAD, 25), np.float32))
+        # no weights file: build_ssd's seeded SSD, the one built here
+        argv = ["--records_dir", str(records), "--result_dir", str(result), "--batch_size", str(BATCH), "--imsize",
+                str(IMSIZE), "--dtype", "bfloat16"]
+        t0 = time.perf_counter()
+        meta = inference.main(argv + ["--export_pipeline", str(tmp / "pipe.bin"), "--export_platforms",
+                                      "cuda"])["export"]
+        export_s = time.perf_counter() - t0
+        out, serve_s, launches, rows = serve_artifact_run(tmp / "pipe.bin", records, tmp / "served")
+        if launches["nms_keep_sorted"] != n_batches or out["images"] != N_IMAGES:
+            raise AssertionError(f"serve_artifact: {out['images']} images, launches {launches}")
+        inference.main(argv)
+        for k in range(N_IMAGES):
+            got = np.asarray(Image.open(tmp / "served" / f"{k:06}.png").convert("RGB"))
+            want = np.asarray(Image.open(result / "detection" / f"{k + 1:06}.png").convert("RGB"))
+            if not np.array_equal(got, want):
+                raise AssertionError(f"serve_artifact: PNG {k} differs from cli.inference's PNG {k + 1}")
+        model = SSD(num_classes=21, dtype=torch.bfloat16, seed=0)
+        want_rows = artifact_rows(Predictor(model, imsize=IMSIZE, batch_size=BATCH).predict(images), labelmap)
+        if rows != want_rows:
+            raise AssertionError(f"serve_artifact: {len(rows)} rows in detections.json, not Predictor's "
+                                 f"{len(want_rows)}")
+        res.update(export_s=export_s, serve_s=serve_s, img_per_s=N_IMAGES / serve_s, launches=launches,
+                   rows=len(rows), meta=meta)
+        print(f"serve_artifact bfloat16 bs{BATCH} (artifact {meta['bytes'] / 1e6:.1f} MB, exported in "
+              f"{export_s:.1f} s): {N_IMAGES} images in {serve_s:.2f} s = {N_IMAGES / serve_s:.1f} img/s, NMS launches "
+              f"{launches['nms_keep_sorted']}, every PNG pixel-equal to cli.inference's, detections.json "
+              f"({len(rows)} rows) equal to Predictor's ({card})")
+
+        code = (
+            "import sys\n"
+            "from object_detection_torch2_tpu_torch.ops import nms_cuda\n"
+            "from object_detection_torch2_tpu_torch.tools import serve_artifact\n"
+            f"serve_artifact.main(['--artifact', {str(tmp / 'pipe.bin')!r}, '--records_dir', {str(records)!r},\n"
+            f"                     '--out_dir', {str(tmp / 'sub')!r}, '--limit', '{BATCH}'])\n"
+            "bad = sorted(m for m in sys.modules if m.startswith('object_detection_torch2_tpu_torch.models')\n"
+            "             or m.endswith('.infer'))\n"
+            "print('nms launches', nms_cuda.launches, 'model modules', bad)\n"
+            "sys.exit(1 if bad else 0)\n"
+        )
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=600)
+        sub_s = time.perf_counter() - t0
+        sub_rows = json.loads((tmp / "sub" / "detections.json").read_text()) if proc.returncode == 0 else None
+        if proc.returncode != 0 or sub_rows != [r for r in rows if r[0] < BATCH]:
+            raise AssertionError(f"serve_artifact in a fresh process: rc {proc.returncode}\n{proc.stdout[-2000:]}"
+                                 f"\n{proc.stderr[-2000:]}")
+        sub_launches = int(proc.stdout.split("nms launches ")[1].split()[0])
+        res["subprocess"] = {"seconds": sub_s, "nms_launches": sub_launches, "models_loaded": []}
+        print(f"serve_artifact in a fresh process (--limit {BATCH}): no module of the port's models loaded, "
+              f"{sub_launches} NMS launch, rows equal, {sub_s:.1f} s with start-up ({card})")
+
+        model = model.to(DEVICE)
+        qd = quant.calibrate_trunk(model, [images[:BATCH]], margin=1.25)
+        quant.save_quant(result / "detection" / "quant.json", qd)
+        inference.main(argv + ["--trunk_int8", "--export_pipeline", str(tmp / "pipe8.bin"), "--export_platforms",
+                               "cuda"])
+        out8, serve8_s, launches8, rows8 = serve_artifact_run(tmp / "pipe8.bin", records, tmp / "served8")
+        model8 = SSD(num_classes=21, dtype=torch.bfloat16, seed=0, trunk_int8=True)
+        model8.set_quant(quant.load_quant(result / "detection" / "quant.json"))
+        want8 = artifact_rows(Predictor(model8, imsize=IMSIZE, batch_size=BATCH).predict(images), labelmap)
+        if (launches8["int8_conv"] != 11 * n_batches or launches8["quantize_act"] != 11 * n_batches
+                or launches8["nms_keep_sorted"] != n_batches or rows8 != want8):
+            raise AssertionError(f"serve_artifact --trunk_int8 artifact: launches {launches8}, rows equal to the "
+                                 f"int8 Predictor's {rows8 == want8}")
+        res["trunk_int8"] = {"serve_s": serve8_s, "launches": launches8, "rows": len(rows8)}
+        print(f"serve_artifact --trunk_int8 artifact: {N_IMAGES} images in {serve8_s:.2f} s, launches {launches8}, "
+              f"detections.json equal to the int8 Predictor's ({card})")
+    del model, model8
+    torch.cuda.empty_cache()
+    res["seconds"] = time.perf_counter() - t_phase
+    print(f"serve_artifact phase: {res['seconds']:.1f} s ({card})")
+    return res
+
+
+# the root tool's smoke size (its docstring) with a 1 s kill grace
+VOC_SCALE_SMOKE = ["--n_train", "512", "--n_test", "96", "--pretrain_n", "256", "--pretrain_epochs", "4",
+                   "--epochs", "4", "--kill_grace_s", "1"]
+
+
+def phase_voc_scale(card: str) -> dict:
+    """tools/voc_scale_proof.py at the root tool's smoke size in a temporary
+    directory: generate, pack, the --train_trunk pretrain, the .pth bridge,
+    the frozen-trunk run SIGKILLed after epoch 1 and resumed from its full
+    state, and the float, --trunk_int8 and --full_int8 evaluations. Its
+    stages are subprocesses, each starting with every launch count at 0;
+    their counts come back in its record. Checked: the kill and the exact
+    resume, no kernel build during training, conv12_bf16 in every training
+    run, NMS in every evaluation, both int8 kernels in the int8 arms, finite
+    mAPs, RSS and device memory read. No threshold is held."""
+    from object_detection_torch2_tpu_torch.tools import common, voc_scale_proof
+
+    saved = common.PROOFS_DIR
+    t0 = time.perf_counter()
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            tmp = Path(tmp)
+            common.PROOFS_DIR = tmp / "proofs"
+            rc = voc_scale_proof.main(VOC_SCALE_SMOKE + ["--work_dir", str(tmp / "work")])
+            record = json.loads((tmp / "proofs" / "voc_scale.json").read_text())
+    finally:
+        common.PROOFS_DIR = saved
+    seconds = time.perf_counter() - t0
+    tr, ev = record["train"], record["eval"]
+    by_stage = record["kernel_launches"]["by_stage"]
+    maps = {"float": (ev["parity_mAP_heldout"], ev["strict_mAP_heldout"]),
+            "trunk_int8": (ev["int8_trunk"]["parity_mAP"], ev["int8_trunk"]["strict_mAP"]),
+            "full_int8": (ev["full_int8"]["parity_mAP"], ev["full_int8"]["strict_mAP"])}
+    problems = []
+    if rc not in (0, 1) or record["phase_completed"] != "eval":
+        problems.append(f"exit code {rc}, phase {record['phase_completed']}")
+    if tr["run1"]["returncode"] != -9 or not tr["orbax_exact_resume"]:
+        problems.append(f"run 1 rc {tr['run1']['returncode']}, full state restored {tr['orbax_exact_resume']}")
+    if not record["checks"]["no_kernel_build_in_training"] or record["kernel_builds"]["built_before_training"]:
+        problems.append(f"kernel builds {record['kernel_builds']}, training {tr['compiles']}")
+    for stage in ("pretrain", "train_run1", "train_run2"):
+        if by_stage.get(stage, {}).get("conv12_bf16", 0) == 0:
+            problems.append(f"{stage} without the conv12 kernel: {by_stage.get(stage)}")
+    for stage in ("eval_float", "eval_trunk_int8", "eval_full_int8"):
+        n = by_stage[stage]
+        if n["nms_keep_sorted"] == 0 or (stage != "eval_float" and (n["int8_conv"] == 0 or n["quantize_act"] == 0)):
+            problems.append(f"{stage}: launches {n}")
+    if not all(np.isfinite(v) for pair in maps.values() for v in pair):
+        problems.append(f"mAPs {maps}")
+    mem = [record["pretrain"]["rss_mb"]["max"], tr["run1"]["rss_mb"]["max"],
+           (tr["run2"]["device_mem_mb"] or {}).get("end")]
+    if any(v is None for v in mem):
+        problems.append(f"RSS / device memory not read: {mem}")
+    if problems:
+        raise AssertionError("voc_scale_proof (smoke size): " + "; ".join(problems))
+    stages = {k: record[k] for k in ("generate_seconds", "pack_seconds")}
+    stages.update(pretrain=record["pretrain"]["seconds"], bridge=record["bridge"]["seconds"],
+                  run1=tr["run1"]["seconds"], run2=tr["run2"]["seconds"], eval=ev["eval_seconds"])
+    print(f"voc_scale_proof (smoke size): exit {rc}, {seconds:.1f} s, killed after epoch {tr['killed_after_epoch']}, "
+          f"resumed at epoch {tr['resume_first_epoch']}, mAPs {maps}, stage seconds {stages}, launches "
+          f"{record['kernel_launches']['total']}, RSS max {mem[:2]} MB, device memory {tr['run2']['device_mem_mb']} "
+          f"({card})")
+    return {"rc": rc, "seconds": seconds, "maps": maps, "stages": stages, "launches": record["kernel_launches"],
+            "train": {k: tr[k] for k in ("killed_after_epoch", "resume_first_epoch", "run1", "run2",
+                                         "run1_lines_after_last_epoch", "epoch_phases_s")}}
+
+
 def proof_launches(proofs: dict) -> dict:
     """Each kernel's launches over the four proofs' smoke runs."""
     from object_detection_torch2_tpu_torch.tools.common import KERNELS
@@ -2732,6 +2937,20 @@ def main(argv=None) -> int:
                      (entries[3], pr["quantize_act"])):
         entry["launches_by_path"]["proofs"] = n
         entry["launches"] += n
+    results["serve_artifact"] = phase_serve_artifact(card)
+    sa = results["serve_artifact"]
+    results["voc_scale"] = phase_voc_scale(card)
+    vs = results["voc_scale"]["launches"]["total"]
+    for entry, key in ((entries[0], "nms_keep_sorted"), (entries[2], "int8_conv"), (entries[3], "quantize_act")):
+        n = sa["launches"][key] + sa["trunk_int8"]["launches"][key]
+        if key == "nms_keep_sorted":
+            n += sa["subprocess"]["nms_launches"]
+        entry["launches_by_path"]["serve_artifact"] = n
+        entry["launches"] += n
+    for entry, key in ((entries[0], "nms_keep_sorted"), (entries[1], "conv12"), (entries[1]["bfloat16"], "conv12_bf16"),
+                       (entries[2], "int8_conv"), (entries[3], "quantize_act")):
+        entry["launches_by_path"]["voc_scale"] = vs[key]
+        entry["launches"] += vs[key]
     results["kernels"] = entries
     if args.out:
         args.out.parent.mkdir(parents=True, exist_ok=True)

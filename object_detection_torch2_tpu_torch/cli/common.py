@@ -44,6 +44,7 @@ from object_detection_torch2_tpu_torch.models.convert import (
 )
 from object_detection_torch2_tpu_torch.models.ssd import SSD
 from object_detection_torch2_tpu_torch.parallel.mesh import barrier, init_distributed, launch, shutdown
+from object_detection_torch2_tpu_torch.serving import pad_batch  # noqa: F401  (its old home)
 from object_detection_torch2_tpu_torch.train import checkpoint as ckpt
 
 # reference data roots were hardcoded (reference: train.py:43, 50); here they
@@ -321,16 +322,6 @@ def build_ssd(args, weights_path: Path, conv12_kernel: bool | None = None):
 def batched(iterable_len: int, batch_size: int):
     for start in range(0, iterable_len, batch_size):
         yield start, min(start + batch_size, iterable_len)
-
-
-def pad_batch(images: np.ndarray, batch_size: int):
-    """Pad a short final batch to the static batch size; returns (padded,
-    real_count)."""
-    n = images.shape[0]
-    if n == batch_size:
-        return images, n
-    pad = np.repeat(images[-1:], batch_size - n, axis=0)
-    return np.concatenate([images, pad], axis=0), n
 
 
 def pad_rows(arr: np.ndarray, rows: int) -> np.ndarray:

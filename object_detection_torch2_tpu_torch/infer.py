@@ -39,6 +39,7 @@ from object_detection_torch2_tpu_torch.models.bn import set_mesh
 from object_detection_torch2_tpu_torch.ops.nms import non_maximum_suppression
 from object_detection_torch2_tpu_torch.ops.scores import calc_scores, top_k_detections
 from object_detection_torch2_tpu_torch.parallel.mesh import all_gather_rows, local_rows, replicate
+from object_detection_torch2_tpu_torch.serving import unpack_detections
 from object_detection_torch2_tpu_torch.utils.hostsync import FetchPipeline
 
 
@@ -140,13 +141,6 @@ def build_detection_pipeline(model, use_batch_stats: bool, imsize: int = 300, io
         return pipe(images_u8, n_real)
 
     return run
-
-
-def unpack_detections(packed):
-    """Host-side split of the pipeline's packed (N, K, 6) rows ->
-    (boxes (N,K,4) f32, class_ids (N,K) int32, scores (N,K) f32)."""
-    packed = np.asarray(packed, np.float32)
-    return packed[..., :4], packed[..., 4].astype(np.int32), packed[..., 5]
 
 
 class Predictor:

@@ -13,9 +13,13 @@ in the program, and writes:
 needs no model code: the programs call the package's kernels as the
 custom ops `torch.ops.odt.*`, so loading imports only `ops/registry.py`. The
 artifact keeps the same (packed (N, K, 6), n_valid (N,)) contract as
-`infer.build_detection_pipeline`, so `infer.unpack_detections` reads its
-output as it is. On the card the program's NMS sweeps run the CUDA kernel
-through the registered op; the NMS tier is a `torch.cond` in the graph.
+`infer.build_detection_pipeline`. The two host helpers a serving site needs
+live here, beside the loader, where they import no model code: `pad_batch`
+(a short final batch to the artifact's fixed batch) and `unpack_detections`
+(the packed rows into boxes, class ids and scores); `cli.common` and `infer`
+re-export them under their old names. On the card the program's NMS sweeps
+run the CUDA kernel through the registered op; the NMS tier is a
+`torch.cond` in the graph.
 
 Limits, as the JAX package's: a fixed batch size (a ragged tail is masked by
 n_real, as in the live pipeline) and one device per artifact run. A program
@@ -31,10 +35,28 @@ import json
 import zipfile
 from pathlib import Path
 
+import numpy as np
 import torch
 
 FORMAT = "object_detection_torch2_tpu_torch/detection-pipeline"
 VERSION = 1
+
+
+def pad_batch(images: np.ndarray, batch_size: int):
+    """Pad a short final batch to the static batch size; returns (padded,
+    real_count)."""
+    n = images.shape[0]
+    if n == batch_size:
+        return images, n
+    pad = np.repeat(images[-1:], batch_size - n, axis=0)
+    return np.concatenate([images, pad], axis=0), n
+
+
+def unpack_detections(packed):
+    """Host-side split of the pipeline's packed (N, K, 6) rows ->
+    (boxes (N,K,4) f32, class_ids (N,K) int32, scores (N,K) f32)."""
+    packed = np.asarray(packed, np.float32)
+    return packed[..., :4], packed[..., 4].astype(np.int32), packed[..., 5]
 
 
 def export_detection_pipeline(model, path, *, batch_size: int, use_batch_stats: bool = False, imsize: int = 300,

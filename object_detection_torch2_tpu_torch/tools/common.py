@@ -134,12 +134,14 @@ def detection_trunk_as_vgg16(ssd_vars: dict, base: dict) -> dict:
     return merge_variables({coll: base[coll] for coll in ("params", "batch_stats")}, trunk_overlay(ssd_vars))
 
 
-def write_record(name: str, record: dict) -> Path:
-    """`record` as `<PROOFS_DIR>/<name>.json`; prints it on one line too."""
+def write_record(name: str, record: dict, echo: bool = True) -> Path:
+    """`record` as `<PROOFS_DIR>/<name>.json`; with `echo`, prints it on one
+    line too."""
     out = Path(PROOFS_DIR) / f"{name}.json"
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(record, indent=2) + "\n")
-    print(json.dumps(record))
+    if echo:
+        print(json.dumps(record))
     return out
 
 

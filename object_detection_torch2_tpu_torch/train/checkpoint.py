@@ -12,6 +12,11 @@
   (reference: src/train.py:150-152), with the JAX package's optional
   `base_lr` and `steps_per_epoch`.
 
+Both files are written to a temporary file beside the target and renamed
+over it (`os.replace`), so a process killed during a save leaves the
+previous file whole: a resumed run reads the weights file before it
+restores the full state. The bytes are those of the JAX package's writers.
+
 - the full state (the JAX package's orbax layer, names kept):
   `save_train_state` writes `<dir>/<step>/state.pt` with the model's
   state_dict (parameters and BatchNorm buffers), the optimizer's state_dict
@@ -26,6 +31,7 @@
 from __future__ import annotations
 
 import json
+import os
 import shutil
 from pathlib import Path
 
@@ -40,11 +46,18 @@ def save_weights(path, model):
     weights.msgpack; `model` may also be such a {"params", "batch_stats"}
     tree itself (numpy or tensor leaves), as the JAX package's
     `save_weights` takes it."""
+    _write_replacing(path, _msgpack.packb(model if isinstance(model, dict) else jax_variables_of(model)))
+
+
+def _write_replacing(path, data: bytes):
+    """Write `data` as `path` through `<path>.tmp` renamed over it: the old
+    file stays whole until the new one is complete."""
     path = Path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
-    data = _msgpack.packb(model if isinstance(model, dict) else jax_variables_of(model))
-    with open(path, "wb") as f:
+    tmp = path.with_name(path.name + ".tmp")
+    with open(tmp, "wb") as f:
         f.write(data)
+    os.replace(tmp, path)
 
 
 def load_weights(path) -> dict:
@@ -60,15 +73,12 @@ def save_params_json(path, min_loss: float, lr: float, last_epoch: int, base_lr:
     `base_lr` (the undecayed schedule base; the reference's `lr` field is the
     already-decayed value, quirk Q7) and `steps_per_epoch` are the JAX
     package's extensions; extra keys do not disturb parity readers."""
-    path = Path(path)
-    path.parent.mkdir(parents=True, exist_ok=True)
     record = {"min_loss": float(min_loss), "lr": float(lr), "last_epoch": int(last_epoch)}
     if base_lr is not None:
         record["base_lr"] = float(base_lr)
     if steps_per_epoch is not None:
         record["steps_per_epoch"] = int(steps_per_epoch)
-    with open(path, "w") as f:
-        json.dump(record, f, indent=4)
+    _write_replacing(path, json.dumps(record, indent=4).encode())
 
 
 def load_params_json(path) -> dict | None:

@@ -1,10 +1,12 @@
 """The port's weights files against flax and the JAX package on the CPU:
 `train/_msgpack.py` reads what `flax.serialization.msgpack_serialize` writes
 and writes the same bytes, `train/checkpoint.py` round-trips weights and
-params.json with the JAX package's, and `cli.common.build_ssd` loads a JAX
-checkpoint into the port's SSD."""
+params.json with the JAX package's, `cli.common.build_ssd` loads a JAX
+checkpoint into the port's SSD, and a save killed before its rename leaves
+the previous file whole (a resumed `cli.train` reads it)."""
 
 import argparse
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -221,3 +223,84 @@ def test_bfloat16_weights_file_loads(tmp_path, jax_init):
     model, _ = build_ssd(_args(tmp_path), path)
     want = half["params"]["det_4_3"]["kernel"].astype(np.float32).transpose(3, 2, 0, 1)
     np.testing.assert_array_equal(model.state_dict()["detectors.det_4_3.weight"].numpy(), want)
+
+
+class _Killed(BaseException):
+    """A kill landing in a save, before its rename."""
+
+
+def _killed_replace(*args):
+    raise _Killed
+
+
+@pytest.mark.parametrize("what", ["weights", "params"])
+def test_an_interrupted_save_leaves_the_old_file(tmp_path, monkeypatch, what):
+    """Each save writes the JAX package's bytes (through a temporary file
+    renamed over the target); a save killed before its rename leaves the
+    previous file whole and readable, and the next save, over the partial
+    temporary file it left, writes the new bytes."""
+    rng = np.random.default_rng(3)
+    trees = [{"params": {"conv": {"kernel": rng.standard_normal((3, 3, 2, 4)).astype(np.float32)}},
+              "batch_stats": {"bn": {"mean": rng.standard_normal(4).astype(np.float32)}}} for _ in range(2)]
+    args = [dict(min_loss=1.25, lr=3e-4, last_epoch=4, base_lr=1e-3, steps_per_epoch=17),
+            dict(min_loss=0.5, lr=2e-4, last_epoch=6, base_lr=1e-3, steps_per_epoch=17)]
+    if what == "weights":
+        def port(path, k):
+            ckpt.save_weights(path, trees[k])
+
+        def jax_writer(path, k):
+            jax_ckpt.save_weights(path, trees[k])
+        read = ckpt.load_weights
+    else:
+        def port(path, k):
+            ckpt.save_params_json(path, **args[k])
+
+        def jax_writer(path, k):
+            jax_ckpt.save_params_json(path, **args[k])
+        read = ckpt.load_params_json
+    path = tmp_path / "out" / "file"
+    for k in (0, 1):
+        jax_writer(tmp_path / f"jax{k}", k)
+    port(path, 0)
+    assert path.read_bytes() == (tmp_path / "jax0").read_bytes()
+    with monkeypatch.context() as m:
+        m.setattr(ckpt.os, "replace", _killed_replace)
+        with pytest.raises(_Killed):
+            port(path, 1)
+    assert path.read_bytes() == (tmp_path / "jax0").read_bytes()
+    read(path)
+    tmp = path.with_name(path.name + ".tmp")
+    tmp.write_bytes(tmp.read_bytes()[:7])  # a kill mid-write leaves part of it
+    port(path, 1)
+    assert path.read_bytes() == (tmp_path / "jax1").read_bytes() and not tmp.exists()
+
+
+def test_resume_after_a_kill_in_a_weights_save(tmp_path, monkeypatch, capsys):
+    """cli.train killed inside epoch 2's weights save (before the rename) and
+    resumed from the full state: the resumed run reads epoch 1's weights
+    file, whole, restores the full state of epoch 1 and trains epoch 2."""
+    from object_detection_torch2_tpu_torch.cli import train
+
+    fixture = str(Path(__file__).parent / "fixtures" / "voc" / "VOCtest")
+    argv = ["--data_dirs", fixture, "--imsize", str(IMSIZE), "--batch_size", "2", "--dtype", "float32",
+            "--num_workers", "0", "--device", "cpu", "--steps_per_epoch", "1", "--train_aug", "none",
+            "--val_aug", "none", "--result_dir", str(tmp_path / "r"), "--log_dir", str(tmp_path / "logs"),
+            "--orbax_dir", str(tmp_path / "state")]
+    weights = tmp_path / "r" / "detection" / "weights.msgpack"
+    train.main(argv + ["--epochs", "1"])
+    epoch1 = weights.read_bytes()
+    with monkeypatch.context() as m:
+        m.setattr(ckpt.os, "replace", _killed_replace)
+        with pytest.raises(_Killed):
+            train.main(argv + ["--epochs", "1"])
+    assert weights.read_bytes() == epoch1 and sorted(p.name for p in (tmp_path / "state").iterdir()) == ["1"]
+    read = []
+    real_load = ckpt.load_weights
+    monkeypatch.setattr(ckpt, "load_weights", lambda path: read.append(Path(path).read_bytes()) or real_load(path))
+    capsys.readouterr()
+    out = train.main(argv + ["--epochs", "1"])
+    printed = capsys.readouterr().out
+    assert read == [epoch1]
+    assert "Full state restored (exact optimizer resume)." in printed and "[Epoch 2/2]" in printed
+    assert len(out["phase_times"]) == 1 and out["state"].step == 2
+    assert weights.read_bytes() != epoch1 and sorted(p.name for p in (tmp_path / "state").iterdir()) == ["1", "2"]

@@ -36,7 +36,7 @@ def _port_modules():
 
 
 PORT_TOOLS = ("common", "synth_voc", "torch_to_npz", "export_torch", "overfit_proof", "generalization_proof",
-              "pretrained_trunk_proof", "int8_budget")
+              "pretrained_trunk_proof", "int8_budget", "serve_artifact", "voc_scale_proof")
 
 
 def _forbidden(name: str) -> bool:
