@@ -103,6 +103,14 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    VGG16 width, imsize 200, batch 32, 4 steps, over 128 + 32 seeded
    classification records, bfloat16 and float32: finite losses, the dead head
    bit-unchanged, its weights file seeding `build_ssd`'s trunk bit for bit;
+   then the classification trajectory: tests/goldens/vgg_trajectory.npz (20
+   steps, batch 4, imsize 200, full width) through
+   `Trainer(loss_kind="cross_entropy")` in float32, to the pins of
+   tests/test_torch_cls_trajectory.py (marked slow on the CPU): per-step
+   loss drift < 1e-2, step 0 < 1e-4, step-0 gradients, final parameters and
+   BN statistics within their fingerprint budgets, the dead head
+   bit-unchanged, the eval forward after training; its launch counts (0:
+   VGG16 runs on cuDNN) go into the kernels line;
 15. device cache: the training CLI with `--device_cache` against streaming
    (bfloat16, 2 epochs, --orbax_dir): losses and weights file bit-equal; H2D
    bytes a step and img/s;
@@ -268,6 +276,8 @@ def synth_array_scaled(key: str, shape: tuple) -> np.ndarray:
     if key.endswith(".weight") and len(shape) == 4:
         fan_out = shape[0] * shape[2] * shape[3]
         return (np.sqrt(2.0 / fan_out) * rng.standard_normal(shape)).astype(np.float32)
+    if key.endswith(".weight") and len(shape) == 2:  # linear (VGG16's classifiers)
+        return (np.sqrt(1.0 / shape[1]) * rng.standard_normal(shape)).astype(np.float32)
     if key.endswith(".weight") and len(shape) == 1:
         return (1.0 + 0.05 * rng.standard_normal(shape)).astype(np.float32)
     return (0.01 * rng.standard_normal(shape)).astype(np.float32)
@@ -308,18 +318,26 @@ def fingerprint_tree(tree: dict, k: int = 8):
     """The golden's parameter fingerprints (the JAX package's utils/testing.py):
     (sorted 'layer/leaf' paths, (n, k + 3) rows of [l2, mean, absmax,
     k seeded unit-direction projections])."""
-    keys, rows = [], []
-    for layer in sorted(tree):
-        for leaf in sorted(tree[layer]):
-            path = f"{layer}/{leaf}"
-            flat = np.asarray(tree[layer][leaf], np.float64).ravel()
-            row = [np.sqrt(np.dot(flat, flat)), flat.mean(), np.abs(flat).max()]
-            for j in range(k):
-                v = np.random.default_rng(zlib.crc32(f"fp:{path}:{j}".encode()) & 0xFFFFFFFF).standard_normal(flat.size)
-                row.append(np.dot(flat, v / np.sqrt(np.dot(v, v))))
-            keys.append(path)
-            rows.append(row)
-    return np.array(keys), np.array(rows, np.float64)
+    return fingerprint_trees(tree, k=k)[0]
+
+
+def fingerprint_trees(*trees, k: int = 8) -> list:
+    """`fingerprint_tree` of each {layer: {leaf: array}} tree, each seeded
+    direction drawn once for every tree that holds its path (one draw of
+    ~134 M values a direction for VGG16)."""
+    flats = [{f"{layer}/{leaf}": np.asarray(t[layer][leaf], np.float64).ravel() for layer in t for leaf in t[layer]}
+             for t in trees]
+    rows = [{} for _ in flats]
+    for path in sorted(set().union(*flats)):
+        held = [(i, f[path]) for i, f in enumerate(flats) if path in f]
+        for i, a in held:
+            rows[i][path] = [np.sqrt(np.dot(a, a)), a.mean(), np.abs(a).max()]
+        for j in range(k):
+            v = np.random.default_rng(zlib.crc32(f"fp:{path}:{j}".encode()) & 0xFFFFFFFF).standard_normal(held[0][1].size)
+            v /= np.sqrt(np.dot(v, v))
+            for i, a in held:
+                rows[i][path].append(np.dot(a, v))
+    return [(np.array(sorted(r)), np.array([r[path] for path in sorted(r)], np.float64)) for r in rows]
 
 
 def phase_reference(card: str) -> dict:
@@ -1448,6 +1466,126 @@ def phase_classification_cli(card: str) -> dict:
             del out, state, ssd
             torch.cuda.empty_cache()
     return res
+
+
+CLS_TRAJECTORY = ROOT / "tests" / "goldens" / "vgg_trajectory.npz"
+
+
+def synth_cls_trajectory_batch(step: int, n: int = 4, imsize: int = 200, num_classes: int = 20):
+    """The classification trajectory golden's batch recipe (the JAX package's
+    utils/testing.py): (images NCHW in [0, 1], one-hot targets)."""
+    rng = np.random.default_rng(0xC1A55 + 6271 * step)
+    images = rng.uniform(0.0, 1.0, (n, 3, imsize, imsize)).astype(np.float32)
+    return images, np.eye(num_classes, dtype=np.float32)[rng.integers(0, num_classes, n)]
+
+
+def phase_cls_trajectory(card: str) -> dict:
+    """The reference's 20-step VGG16 classification run
+    (tests/goldens/vgg_trajectory.npz: batch 4, imsize 200, full width, Adam
+    over the trunk and the 20-way head, dropout 0) replayed on the card in
+    float32 through `Trainer(loss_kind="cross_entropy")`, to the pins of
+    tests/test_torch_cls_trajectory.py (its CPU replay is marked slow):
+    per-step loss drift < 1e-2 and step 0 < 1e-4, the learning rates, the
+    step-0 gradients (conv biases left out) within 5e-3 of max(L2, 1e-4),
+    every parameter within 5e-3 * L2 + 1e-2 with the dead 1000-way head
+    bit-unchanged and without Adam moments, the BN statistics within 0.1 *
+    L2 + 0.1, the eval forward after training max |d| < 0.1 and mean < 0.04.
+    VGG16's convolutions are cuDNN's: the path runs none of the port's
+    kernels, and its launch counts (0) are read around the replay."""
+    from object_detection_torch2_tpu_torch.models.convert import (
+        jax_tree,
+        vgg16_state_dict_from_jax_variables,
+        vgg16_variables_from_torch,
+    )
+    from object_detection_torch2_tpu_torch.models.vgg16 import VGG16, vgg_trainable_predicate
+    from object_detection_torch2_tpu_torch.tools.common import launch_counts
+    from object_detection_torch2_tpu_torch.train.optimizer import adam_torch, exponential_epoch_schedule
+    from object_detection_torch2_tpu_torch.train.trainer import Trainer
+
+    t_phase = time.perf_counter()
+    g = np.load(CLS_TRAJECTORY)
+    steps, spe, bs, imsize = int(g["steps"]), int(g["steps_per_epoch"]), int(g["bs"]), int(g["imsize"])
+    sd = {k: synth_array_scaled(k, shape) for k, shape in
+          unpack_manifest(g["manifest_keys"], g["manifest_shapes"]).items()}
+    trainer = Trainer(VGG16(num_classes=20, transfer_learning=True, dropout_rate=0.0), loss_kind="cross_entropy")
+    schedule = exponential_epoch_schedule(float(g["lr"]), float(g["gamma"]), spe)
+    state = trainer.init_state(lambda ps: adam_torch(ps, schedule, weight_decay=float(g["weight_decay"])),
+                               is_trainable=vgg_trainable_predicate(True),
+                               state_dict=vgg16_state_dict_from_jax_variables(vgg16_variables_from_torch(sd)))
+    dead0 = {k: v.clone() for k, v in state.frozen.items()}
+    grads0 = {}
+    apply = state.apply_gradients
+
+    def capture(grads):
+        if not grads0:
+            grads0.update(zip(state.trainable, (t.clone() for t in grads)))
+        apply(grads)
+
+    state.apply_gradients = capture
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = []
+    for step in range(steps):
+        images, targets = synth_cls_trajectory_batch(step, n=bs, imsize=imsize)
+        losses.append(float(trainer.train_step(state, np.ascontiguousarray(images.transpose(0, 2, 3, 1)), targets)))
+    torch.cuda.synchronize()
+    replay_s = time.perf_counter() - t0
+    launches = launch_counts()
+
+    ref = g["losses"]
+    drift = np.abs(np.array(losses) - ref) / np.maximum(np.abs(ref), 1e-9)
+    if not (drift.max() < 1e-2 and drift[0] < 1e-4):
+        raise AssertionError(f"cls loss trajectory drift {drift.max():.2e} at step {drift.argmax()}, "
+                             f"step 0 {drift[0]:.2e} (pins 1e-2, 1e-4)")
+    lrs = [schedule(s) for s in range(steps)]
+    np.testing.assert_allclose(lrs, g["lrs"], rtol=1e-12)
+    assert state.optimizer.steps_taken() == state.step == steps
+
+    fps = dict(zip(("grads", "params", "stats"), fingerprint_trees(
+        jax_tree(grads0), jax_tree(dict(state.model.named_parameters())), jax_tree(state.batch_stats))))
+
+    def delta(name, fp_key):
+        keys, fp = fps[name]
+        if list(keys) != [str(k) for k in g[f"{fp_key}_keys"]]:
+            raise AssertionError(f"cls {name}: tensor inventory differs from the golden's")
+        return keys, np.abs(fp - g[fp_key]).max(axis=1), g[fp_key][:, 0]
+
+    keys, absd, l2 = delta("grads", "grad_fp")
+    carrying = np.array([not (k.startswith("conv_") and k.endswith("/bias")) for k in keys])
+    grad_rel = float((absd / np.maximum(l2, 1e-4))[carrying].max())
+    keys, absd, l2 = delta("params", "param_fp")
+    param_use = float((absd / (5e-3 * l2 + 1e-2)).max())
+    keys, absd, l2 = delta("stats", "bs_fp")
+    stats_use = float((absd / (0.1 * l2 + 0.1)).max())
+    if not (grad_rel < 5e-3 and param_use <= 1 and stats_use <= 1):
+        raise AssertionError(f"cls fingerprints off their pins: step-0 gradients {grad_rel:.2e} (5e-3), "
+                             f"parameter budget use {param_use:.3f}, BN statistics budget use {stats_use:.3f}")
+    assert sorted(dead0) == [f"classifier_fc{i}.{leaf}" for i in (1, 2, 3) for leaf in ("bias", "weight")]
+    for name, p in state.frozen.items():
+        if not (torch.equal(p, dead0[name]) and not p.requires_grad):
+            raise AssertionError(f"cls dead head {name} changed")
+    assert set(state.optimizer.state) == set(state.trainable.values())
+
+    images0, _ = synth_cls_trajectory_batch(0, n=bs, imsize=imsize)
+    with torch.no_grad():
+        out = state.model.eval()(torch.from_numpy(np.ascontiguousarray(images0.transpose(0, 2, 3, 1))).to(DEVICE),
+                                 train=False, use_batch_stats=False)
+    d = np.abs(out.float().cpu().numpy() - g["out_eval_after"])
+    if not (d.max() < 1e-1 and d.mean() < 4e-2):
+        raise AssertionError(f"cls eval-after max |d| {d.max():.2e} (1e-1), mean {d.mean():.2e} (4e-2)")
+    phase_s = time.perf_counter() - t_phase
+    print(f"classification trajectory replay float32, VGG16 imsize {imsize} bs{bs}: {steps} steps in "
+          f"{replay_s:.2f} s (the phase {phase_s:.1f} s), loss drift max {drift.max():.2e} (pin 1e-2), step 0 {drift[0]:.2e} (pin 1e-4), "
+          f"step-0 gradients {grad_rel:.2e} (pin 5e-3), parameter budget use {param_use:.3f}, BN statistics "
+          f"budget use {stats_use:.3f}, dead head bit-unchanged, eval forward max |d| {d.max():.2e} (pin 1e-1) "
+          f"mean {d.mean():.2e} (pin 4e-2); launches {launches} ({card})")
+    del trainer, state, out
+    torch.cuda.empty_cache()
+    return {"steps": steps, "replay_s": replay_s, "phase_s": phase_s, "losses": losses, "loss_drift_max": float(drift.max()),
+            "loss_drift_step0": float(drift[0]), "grad_rel_max": grad_rel, "param_budget_use": param_use,
+            "bn_budget_use": stats_use, "eval_fwd_maxabs": float(d.max()), "eval_fwd_mean": float(d.mean()),
+            "launches": launches}
 
 
 def phase_device_cache_cli(card: str) -> dict:
@@ -2917,6 +3055,7 @@ def main(argv=None) -> int:
     results["augment"] = phase_augment(card)
     results["train_cli"] = phase_train_cli(card)
     results["classification_cli"] = phase_classification_cli(card)
+    results["cls_trajectory"] = phase_cls_trajectory(card)
     results["device_cache_cli"] = phase_device_cache_cli(card)
     entries.append(conv12_entry(results["conv12_vs_plain"], results["training"], results["train_cli"],
                                 results["trajectory"], results["device_cache_cli"]))
@@ -2951,6 +3090,11 @@ def main(argv=None) -> int:
                        (entries[2], "int8_conv"), (entries[3], "quantize_act")):
         entry["launches_by_path"]["voc_scale"] = vs[key]
         entry["launches"] += vs[key]
+    cls = results["cls_trajectory"]["launches"]  # VGG16 runs on cuDNN: none of these kernels
+    for entry, key in ((entries[0], "nms_keep_sorted"), (entries[1], "conv12"), (entries[1]["bfloat16"], "conv12_bf16"),
+                       (entries[2], "int8_conv"), (entries[3], "quantize_act")):
+        entry["launches_by_path"]["cls_trajectory"] = cls[key]
+        entry["launches"] += cls[key]
     results["kernels"] = entries
     if args.out:
         args.out.parent.mkdir(parents=True, exist_ok=True)

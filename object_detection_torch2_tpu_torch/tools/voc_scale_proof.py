@@ -299,7 +299,8 @@ def run_stage(label, argv, log_path: Path, env=None, kill_after_epoch=None, kill
 
     Returns {seconds, epochs: [...], compiles: [...] (kernel builds),
     rss_mb, device_mem_mb (summaries, and their (t, MiB) series every
-    POLL_S), killed, returncode, launches}. With
+    POLL_S; RSS from the first reading of the running child, which polls
+    every 0.05 s until then), killed, returncode, launches}. With
     kill_after_epoch=E, SIGKILLs the process `kill_grace_s` seconds after
     the epoch-E summary line appears (a crash, not a clean shutdown). With
     gpu, polls the process's device memory; with launches_path, the stage
@@ -334,7 +335,9 @@ def run_stage(label, argv, log_path: Path, env=None, kill_after_epoch=None, kill
             with open(f"/proc/{proc.pid}/status") as f:
                 for line in f:
                     if line.startswith("VmRSS:"):
-                        rss.append((t, int(line.split()[1]) // 1024))
+                        mb = int(line.split()[1]) // 1024
+                        if rss or mb:  # under 1 MiB before any reading: the child is still in its exec
+                            rss.append((t, mb))
                         break
         except OSError:
             pass
@@ -347,7 +350,7 @@ def run_stage(label, argv, log_path: Path, env=None, kill_after_epoch=None, kill
     def poll_loop():
         while proc.poll() is None:
             poll()
-            time.sleep(POLL_S)
+            time.sleep(POLL_S if rss else 0.05)  # the first RSS reading as soon as the child runs
 
     threading.Thread(target=poll_loop, daemon=True).start()
     tail = []

@@ -10,7 +10,8 @@ order; a worker runs its tests one after another, so a file's start is the
 sum of the seconds of the tests its worker ran before it (gaps between tests
 are not counted). Prints one line a file, the busiest first: tests, busy
 seconds and, with a log, worker and start; then each worker's files in
-order and its end.
+order and its end, and the critical path: the file that ended last, its
+worker, its start and its end.
 """
 
 import re
@@ -68,6 +69,9 @@ def report(junit, log=None):
     for worker in sorted(clock, key=lambda w: int(w[2:])) if log else ():
         ran = sorted((e[1], n) for n, e in files.items() if e[0] == worker)
         print(f"{worker}: ends at {clock[worker]:.0f} s: " + ", ".join(f"{n}@{s:.0f}" for s, n in ran))
+    if log and files:
+        name, (worker, start, busy, _) = max(files.items(), key=lambda kv: kv[1][1] + kv[1][2])
+        print(f"ended last: {name} on {worker}, start {start:.0f} s, end {start + busy:.0f} s")
 
 
 if __name__ == "__main__":

@@ -177,14 +177,14 @@ def test_op_order_matches_jax(order):
             jax_augment.adjust_hue)
     jargs = [jnp.asarray(a.numpy()) for a in (*f, dh)]
 
-    def jax_chain(x):
+    def jax_chain(x, jargs):
         for op in augment.PERMS[order]:
             x = jops[op](x, jargs[op])
         return x
 
     for dtype, (tdt, jdt) in DTYPES.items():
         got = augment._color_jitter(augment.to_unit_range(torch.from_numpy(images), tdt), draws)
-        _assert_close(got, jax.jit(jax_chain)(_jax_unit(images, jdt)), dtype)
+        _assert_close(got, jax.jit(jax_chain)(_jax_unit(images, jdt), jargs), dtype)
 
 
 # ------------------------------------------------------------ the whole chain

@@ -134,61 +134,8 @@ def test_params_json_round_trip(tmp_path, extra):
     assert ckpt.load_params_json(tmp_path / "absent.json") is None
 
 
-@pytest.fixture(scope="module")
-def jax_init():
-    jmodel = JaxSSD(num_classes=21)
-    variables = jax.jit(lambda k: jmodel.init(k, jnp.zeros((1, IMSIZE, IMSIZE, 3)), train=False))(
-        jax.random.PRNGKey(0))
-    return jmodel, jax.tree.map(np.asarray, variables)
-
-
 def _args(tmp_path, dtype="float32"):
     return argparse.Namespace(dtype=dtype, result_dir=str(tmp_path), weights="weights.msgpack")
-
-
-def test_jax_weights_file_loads_into_build_ssd(tmp_path, jax_init):
-    """The JAX package's init variables, saved by its save_weights, loaded by
-    the port's build_ssd: the forward agrees with the JAX forward within
-    tests/test_torch_models.py's tolerances (rtol 1e-4, atol 1e-4), and the
-    port's save_weights of that model writes the JAX package's file byte for
-    byte."""
-    jmodel, variables = jax_init
-    path = tmp_path / "detection" / "weights.msgpack"
-    jax_ckpt.save_weights(path, variables)
-    model, labelmap = build_ssd(_args(tmp_path), path)
-    assert len(labelmap) == 20 and model.dtype == torch.float32
-    x = np.random.default_rng(9).uniform(0, 1, (1, IMSIZE, IMSIZE, 3)).astype(np.float32)
-    want = np.asarray(jmodel.apply(variables, jnp.asarray(x), train=False, use_batch_stats=False))
-    with torch.inference_mode():
-        got = model.eval()(torch.from_numpy(x), use_batch_stats=False).numpy()
-    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
-
-    ckpt.save_weights(tmp_path / "port.msgpack", model)
-    assert (tmp_path / "port.msgpack").read_bytes() == path.read_bytes()
-    back = jax_ckpt.load_weights(tmp_path / "port.msgpack")
-    for a, b in zip(jax.tree.leaves(back), jax.tree.leaves(variables), strict=True):
-        np.testing.assert_array_equal(a, b)
-
-
-def test_state_dict_converters_invert_each_other(jax_init):
-    """jax -> state_dict -> jax is the identity bit for bit, and so is
-    state_dict -> jax -> state_dict on the port's seeded model."""
-    _, variables = jax_init
-    back = jax_variables_from_state_dict(ssd_state_dict_from_jax_variables(variables))
-    assert sorted(back) == sorted(variables)
-    for coll in variables:
-        assert sorted(back[coll]) == sorted(variables[coll])
-        for layer, leaves in variables[coll].items():
-            assert sorted(back[coll][layer]) == sorted(leaves)
-            for leaf, v in leaves.items():
-                got = back[coll][layer][leaf]
-                assert got.dtype == v.dtype and got.flags.c_contiguous
-                np.testing.assert_array_equal(got, v)
-    sd = SSD(seed=3).state_dict()
-    again = ssd_state_dict_from_jax_variables(jax_variables_from_state_dict(sd))
-    assert list(again) == list(sd)
-    for k in sd:
-        assert torch.equal(again[k], sd[k]), k
 
 
 def test_build_ssd_load_order(tmp_path):
@@ -208,21 +155,6 @@ def test_build_ssd_load_order(tmp_path):
     for k, v in model.state_dict().items():
         trunk = not SSD.is_trainable(k)
         assert torch.equal(v, (other if trunk else seeded)[k]), k
-
-
-def test_bfloat16_weights_file_loads(tmp_path, jax_init):
-    """A weights file whose leaves are bfloat16 (written by the JAX package)
-    loads as torch.bfloat16 leaves, and `build_ssd` gives the model those
-    values in its float32 parameters."""
-    _, variables = jax_init
-    half = jax.tree.map(lambda a: np.asarray(jnp.asarray(a, jnp.bfloat16)), variables)
-    path = tmp_path / "detection" / "weights.msgpack"
-    jax_ckpt.save_weights(path, half)
-    leaf = ckpt.load_weights(path)["params"]["conv_1_1"]["kernel"]
-    assert isinstance(leaf, torch.Tensor) and leaf.dtype == torch.bfloat16
-    model, _ = build_ssd(_args(tmp_path), path)
-    want = half["params"]["det_4_3"]["kernel"].astype(np.float32).transpose(3, 2, 0, 1)
-    np.testing.assert_array_equal(model.state_dict()["detectors.det_4_3.weight"].numpy(), want)
 
 
 class _Killed(BaseException):
@@ -304,3 +236,76 @@ def test_resume_after_a_kill_in_a_weights_save(tmp_path, monkeypatch, capsys):
     assert "Full state restored (exact optimizer resume)." in printed and "[Epoch 2/2]" in printed
     assert len(out["phase_times"]) == 1 and out["state"].step == 2
     assert weights.read_bytes() != epoch1 and sorted(p.name for p in (tmp_path / "state").iterdir()) == ["1", "2"]
+
+
+# The tests below take the JAX package's seeded init, a jitted program that
+# tests/test_torch_parallel.py, test_torch_evaluate.py and test_torch_train_cli.py
+# compile too: placed last, they usually find it in the persistent compile cache.
+
+
+@pytest.fixture(scope="module")
+def jax_init():
+    jmodel = JaxSSD(num_classes=21)
+    variables = jax.jit(lambda k: jmodel.init(k, jnp.zeros((1, IMSIZE, IMSIZE, 3)), train=False))(
+        jax.random.PRNGKey(0))
+    return jmodel, jax.tree.map(np.asarray, variables)
+
+
+def test_jax_weights_file_loads_into_build_ssd(tmp_path, jax_init):
+    """The JAX package's init variables, saved by its save_weights, loaded by
+    the port's build_ssd: the forward agrees with the JAX forward within
+    tests/test_torch_models.py's tolerances (rtol 1e-4, atol 1e-4), and the
+    port's save_weights of that model writes the JAX package's file byte for
+    byte."""
+    jmodel, variables = jax_init
+    path = tmp_path / "detection" / "weights.msgpack"
+    jax_ckpt.save_weights(path, variables)
+    model, labelmap = build_ssd(_args(tmp_path), path)
+    assert len(labelmap) == 20 and model.dtype == torch.float32
+    x = np.random.default_rng(9).uniform(0, 1, (1, IMSIZE, IMSIZE, 3)).astype(np.float32)
+    want = np.asarray(jmodel.apply(variables, jnp.asarray(x), train=False, use_batch_stats=False))
+    with torch.inference_mode():
+        got = model.eval()(torch.from_numpy(x), use_batch_stats=False).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+
+    ckpt.save_weights(tmp_path / "port.msgpack", model)
+    assert (tmp_path / "port.msgpack").read_bytes() == path.read_bytes()
+    back = jax_ckpt.load_weights(tmp_path / "port.msgpack")
+    for a, b in zip(jax.tree.leaves(back), jax.tree.leaves(variables), strict=True):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_state_dict_converters_invert_each_other(jax_init):
+    """jax -> state_dict -> jax is the identity bit for bit, and so is
+    state_dict -> jax -> state_dict on the port's seeded model."""
+    _, variables = jax_init
+    back = jax_variables_from_state_dict(ssd_state_dict_from_jax_variables(variables))
+    assert sorted(back) == sorted(variables)
+    for coll in variables:
+        assert sorted(back[coll]) == sorted(variables[coll])
+        for layer, leaves in variables[coll].items():
+            assert sorted(back[coll][layer]) == sorted(leaves)
+            for leaf, v in leaves.items():
+                got = back[coll][layer][leaf]
+                assert got.dtype == v.dtype and got.flags.c_contiguous
+                np.testing.assert_array_equal(got, v)
+    sd = SSD(seed=3).state_dict()
+    again = ssd_state_dict_from_jax_variables(jax_variables_from_state_dict(sd))
+    assert list(again) == list(sd)
+    for k in sd:
+        assert torch.equal(again[k], sd[k]), k
+
+
+def test_bfloat16_weights_file_loads(tmp_path, jax_init):
+    """A weights file whose leaves are bfloat16 (written by the JAX package)
+    loads as torch.bfloat16 leaves, and `build_ssd` gives the model those
+    values in its float32 parameters."""
+    _, variables = jax_init
+    half = jax.tree.map(lambda a: np.asarray(jnp.asarray(a, jnp.bfloat16)), variables)
+    path = tmp_path / "detection" / "weights.msgpack"
+    jax_ckpt.save_weights(path, half)
+    leaf = ckpt.load_weights(path)["params"]["conv_1_1"]["kernel"]
+    assert isinstance(leaf, torch.Tensor) and leaf.dtype == torch.bfloat16
+    model, _ = build_ssd(_args(tmp_path), path)
+    want = half["params"]["det_4_3"]["kernel"].astype(np.float32).transpose(3, 2, 0, 1)
+    np.testing.assert_array_equal(model.state_dict()["detectors.det_4_3.weight"].numpy(), want)

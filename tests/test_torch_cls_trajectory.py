@@ -11,6 +11,11 @@ the golden's manifest-seeded weights and batches. Fingerprints are taken in
 the JAX layout (models/convert.py `jax_tree`), each seeded direction drawn
 once for the gradients and the parameters that share its path. The step-0
 gradients are those the first train step applies.
+
+Marked slow: the replay is ~300 CPU-seconds of full-width VGG16 compute on
+one thread. chip_smoke.py's `phase_cls_trajectory` replays the same golden
+on the card in float32 and holds it to these pins; `pytest -m slow` runs it
+here.
 """
 
 import zlib
@@ -35,6 +40,8 @@ from object_detection_torch2_tpu_torch.train.optimizer import adam_torch, expone
 from object_detection_torch2_tpu_torch.train.trainer import Trainer
 
 torch.set_num_threads(1)
+
+pytestmark = pytest.mark.slow
 
 
 def _fingerprints(*named_trees, k: int = 8):

@@ -34,6 +34,100 @@ CLI_ARGS = ["--imsize", str(IMSIZE), "--batch_size", str(BATCH), "--bn_mode", "r
             "--device", "cpu", "--strict_ap", "--num_workers", "0"]
 
 
+def test_eval_pipeline_k_stacked_and_half_scores():
+    """build_eval_pipeline on K stacked batches equals K calls; d2h_half
+    casts only the scores leaf to float16."""
+    model = SSD(num_classes=21, seed=1)
+    rng = np.random.default_rng(6)
+    images = rng.integers(0, 256, (2, BATCH, IMSIZE, IMSIZE, 3), dtype=np.uint8)
+    gts = np.stack([synth_targets(rng, BATCH, [2, 1, 3], G_PAD) for _ in range(2)])
+    run = evaluate.build_eval_pipeline(model, True, IMSIZE, 20, device="cpu")
+    half = evaluate.build_eval_pipeline(model, True, IMSIZE, 20, device="cpu", d2h_half=True)
+    stacked, n_valid = run(images, gts, [3, 2])
+    halved, _ = half(images, gts, [3, 2])
+    for k, real in enumerate((3, 2)):
+        single, nv = run(images[k], gts[k], real)
+        assert torch.equal(n_valid[k], nv)
+        for key in single:
+            assert torch.equal(stacked[key][k], single[key]), key
+            if key == "scores":
+                assert halved[key].dtype == torch.float16 and torch.equal(halved[key][k], single[key].half())
+            else:
+                assert torch.equal(halved[key][k], single[key]), key
+
+
+@pytest.mark.parametrize("n", [0, 1, 2, 3])
+def test_padding_helpers_match_jax(n):
+    """pad_rows, pad_batch and batched equal the JAX package's (pad_batch
+    needs a row to repeat)."""
+    rows = np.arange(n * 2 * 3, dtype=np.uint8).reshape(n, 2, 3)
+    got, want = common.pad_rows(rows, BATCH), jax_common.pad_rows(rows, BATCH)
+    assert got.dtype == want.dtype
+    np.testing.assert_array_equal(got, want)
+    if n:
+        (got, real), (want, want_real) = common.pad_batch(rows, BATCH), jax_common.pad_batch(rows, BATCH)
+        assert real == want_real == n
+        np.testing.assert_array_equal(got, want)
+    assert list(common.batched(3 * n + 1, 2)) == list(jax_common.batched(3 * n + 1, 2))
+
+
+@pytest.mark.parametrize("flags,item", [(["--distributed"], "G"), (["--num_devices", "2"], "G")])
+def test_cli_unported_flags_raise(tmp_path, flags, item, capsys):
+    """The flags of ROADMAP Queue 1 item G (data parallelism), ported:
+    --distributed without torchrun's environment raises; --num_devices 2 at
+    batch 3 serves on the largest count that divides the batch, one process,
+    with the JAX package's note (tests/test_torch_parallel_cli.py runs 2)."""
+    argv = CLI_ARGS + ["--data_dirs", str(FIXTURE), "--result_dir", str(tmp_path)] + flags
+    if flags == ["--distributed"]:
+        with pytest.raises(RuntimeError, match="torchrun"):
+            evaluate.main(argv)
+        return
+    aps, _, _, _ = evaluate.main(argv)
+    assert "note: serving on 1 device(s) — batch_size 3 does not divide over 2" in capsys.readouterr().out
+    assert len(aps) == 20 and item == "G"
+
+
+@pytest.mark.parametrize("flag,calls", [("--trunk_int8", 11), ("--full_int8", 27)])
+def test_cli_int8_flags_run(tmp_path, monkeypatch, flag, calls):
+    """--trunk_int8 (scales from the quant.json the training CLI writes) and
+    --full_int8 (calibrated here, written to quant_full.json) evaluate the
+    fixture on the model's int8 path: that many int8 convolutions a batch,
+    the report written, each AP of a class with ground truth in [0, 1]."""
+    from object_detection_torch2_tpu_torch.models import quant
+    from object_detection_torch2_tpu_torch.models import ssd as ssd_mod
+
+    if flag == "--trunk_int8":
+        (tmp_path / "detection").mkdir(parents=True)
+        quant.save_quant(tmp_path / "detection" / "quant.json",
+                         {f"amax_{layer}": 4.0 for layer in quant.QUANT_LAYERS})
+    seen = []
+    real = ssd_mod.int8_conv
+    monkeypatch.setattr(ssd_mod, "int8_conv", lambda *a: seen.append(1) or real(*a))
+    aps, mean_ap, _, _ = evaluate.main(CLI_ARGS + ["--data_dirs", str(FIXTURE), "--result_dir", str(tmp_path), flag])
+    assert len(seen) == 2 * calls  # the fixture's 4 images: 2 batches
+    scored = aps[~np.isnan(aps)]
+    assert len(scored) and ((scored >= 0) & (scored <= 1)).all() and 0 <= mean_ap <= 1
+    assert list((tmp_path / "detection").glob("*.md"))
+    if flag == "--full_int8":
+        qd = quant.load_quant(tmp_path / "detection" / "quant_full.json")
+        assert quant.missing_layers(qd, quant.FULL_QUANT_LAYERS) == []
+
+
+def test_cli_without_device_needs_a_card(tmp_path):
+    """No --device: the CLI runs on the card, and raises without one."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is available")
+    args = [a for a in CLI_ARGS if a not in ("--device", "cpu")]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        evaluate.main(args + ["--data_dirs", str(FIXTURE), "--result_dir", str(tmp_path)])
+
+
+# The tests below take the JAX package's seeded init, a jitted program that
+# tests/test_torch_parallel.py, test_torch_checkpoint.py and test_torch_train_cli.py
+# compile too: placed after the port-only tests, they usually find it in the
+# persistent compile cache.
+
+
 @pytest.fixture(scope="module")
 def jax_side():
     """The JAX package's init variables and its evaluation pipeline, compiled
@@ -165,91 +259,3 @@ def test_cli_flags_match_the_plain_run(cli_run, tmp_path, flags):
     else:
         np.testing.assert_array_equal(got[3], strict_aps)
         assert got[2] == strict_mean
-
-
-def test_eval_pipeline_k_stacked_and_half_scores():
-    """build_eval_pipeline on K stacked batches equals K calls; d2h_half
-    casts only the scores leaf to float16."""
-    model = SSD(num_classes=21, seed=1)
-    rng = np.random.default_rng(6)
-    images = rng.integers(0, 256, (2, BATCH, IMSIZE, IMSIZE, 3), dtype=np.uint8)
-    gts = np.stack([synth_targets(rng, BATCH, [2, 1, 3], G_PAD) for _ in range(2)])
-    run = evaluate.build_eval_pipeline(model, True, IMSIZE, 20, device="cpu")
-    half = evaluate.build_eval_pipeline(model, True, IMSIZE, 20, device="cpu", d2h_half=True)
-    stacked, n_valid = run(images, gts, [3, 2])
-    halved, _ = half(images, gts, [3, 2])
-    for k, real in enumerate((3, 2)):
-        single, nv = run(images[k], gts[k], real)
-        assert torch.equal(n_valid[k], nv)
-        for key in single:
-            assert torch.equal(stacked[key][k], single[key]), key
-            if key == "scores":
-                assert halved[key].dtype == torch.float16 and torch.equal(halved[key][k], single[key].half())
-            else:
-                assert torch.equal(halved[key][k], single[key]), key
-
-
-@pytest.mark.parametrize("n", [0, 1, 2, 3])
-def test_padding_helpers_match_jax(n):
-    """pad_rows, pad_batch and batched equal the JAX package's (pad_batch
-    needs a row to repeat)."""
-    rows = np.arange(n * 2 * 3, dtype=np.uint8).reshape(n, 2, 3)
-    got, want = common.pad_rows(rows, BATCH), jax_common.pad_rows(rows, BATCH)
-    assert got.dtype == want.dtype
-    np.testing.assert_array_equal(got, want)
-    if n:
-        (got, real), (want, want_real) = common.pad_batch(rows, BATCH), jax_common.pad_batch(rows, BATCH)
-        assert real == want_real == n
-        np.testing.assert_array_equal(got, want)
-    assert list(common.batched(3 * n + 1, 2)) == list(jax_common.batched(3 * n + 1, 2))
-
-
-@pytest.mark.parametrize("flags,item", [(["--distributed"], "G"), (["--num_devices", "2"], "G")])
-def test_cli_unported_flags_raise(tmp_path, flags, item, capsys):
-    """The flags of ROADMAP Queue 1 item G (data parallelism), ported:
-    --distributed without torchrun's environment raises; --num_devices 2 at
-    batch 3 serves on the largest count that divides the batch, one process,
-    with the JAX package's note (tests/test_torch_parallel_cli.py runs 2)."""
-    argv = CLI_ARGS + ["--data_dirs", str(FIXTURE), "--result_dir", str(tmp_path)] + flags
-    if flags == ["--distributed"]:
-        with pytest.raises(RuntimeError, match="torchrun"):
-            evaluate.main(argv)
-        return
-    aps, _, _, _ = evaluate.main(argv)
-    assert "note: serving on 1 device(s) — batch_size 3 does not divide over 2" in capsys.readouterr().out
-    assert len(aps) == 20 and item == "G"
-
-
-@pytest.mark.parametrize("flag,calls", [("--trunk_int8", 11), ("--full_int8", 27)])
-def test_cli_int8_flags_run(tmp_path, monkeypatch, flag, calls):
-    """--trunk_int8 (scales from the quant.json the training CLI writes) and
-    --full_int8 (calibrated here, written to quant_full.json) evaluate the
-    fixture on the model's int8 path: that many int8 convolutions a batch,
-    the report written, each AP of a class with ground truth in [0, 1]."""
-    from object_detection_torch2_tpu_torch.models import quant
-    from object_detection_torch2_tpu_torch.models import ssd as ssd_mod
-
-    if flag == "--trunk_int8":
-        (tmp_path / "detection").mkdir(parents=True)
-        quant.save_quant(tmp_path / "detection" / "quant.json",
-                         {f"amax_{layer}": 4.0 for layer in quant.QUANT_LAYERS})
-    seen = []
-    real = ssd_mod.int8_conv
-    monkeypatch.setattr(ssd_mod, "int8_conv", lambda *a: seen.append(1) or real(*a))
-    aps, mean_ap, _, _ = evaluate.main(CLI_ARGS + ["--data_dirs", str(FIXTURE), "--result_dir", str(tmp_path), flag])
-    assert len(seen) == 2 * calls  # the fixture's 4 images: 2 batches
-    scored = aps[~np.isnan(aps)]
-    assert len(scored) and ((scored >= 0) & (scored <= 1)).all() and 0 <= mean_ap <= 1
-    assert list((tmp_path / "detection").glob("*.md"))
-    if flag == "--full_int8":
-        qd = quant.load_quant(tmp_path / "detection" / "quant_full.json")
-        assert quant.missing_layers(qd, quant.FULL_QUANT_LAYERS) == []
-
-
-def test_cli_without_device_needs_a_card(tmp_path):
-    """No --device: the CLI runs on the card, and raises without one."""
-    if torch.cuda.is_available():
-        pytest.skip("a CUDA card is available")
-    args = [a for a in CLI_ARGS if a not in ("--device", "cpu")]
-    with pytest.raises(RuntimeError, match="CUDA"):
-        evaluate.main(args + ["--data_dirs", str(FIXTURE), "--result_dir", str(tmp_path)])

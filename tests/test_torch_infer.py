@@ -83,14 +83,22 @@ def test_predictor_matches_jax_predictor(both, use_batch_stats):
         assert (g.scores > 0).all() and (g.scores <= 1).all()
 
 
-def test_pipeline_running_stats_matches_jax(both):
+@pytest.fixture(scope="module")
+def running_rows(both):
+    """The port's float32 running-statistics pipeline (max_detections 50) on
+    the 3 images with n_real 2, which two tests compare: (packed, n_valid)."""
+    _, _, model, images = both
+    return build_detection_pipeline(model, use_batch_stats=False, imsize=IMSIZE, max_detections=50,
+                                    device="cpu")(images, 2)
+
+
+def test_pipeline_running_stats_matches_jax(both, running_rows):
     """Running-statistics serving: packed rows and n_valid of one padded batch."""
     jmodel, variables, model, images = both
     batch = images  # row 2 stands for a pad row: n_real = 2
     jrun = jax_pipeline(jmodel, use_batch_stats=False, imsize=IMSIZE, max_detections=50)
     want_packed, want_valid = (np.asarray(x) for x in jrun(variables, jnp.asarray(batch), 2))
-    run = build_detection_pipeline(model, use_batch_stats=False, imsize=IMSIZE, max_detections=50, device="cpu")
-    packed, n_valid = run(batch, 2)
+    packed, n_valid = running_rows
     np.testing.assert_array_equal(n_valid.numpy(), want_valid)
     boxes, classes, scores = unpack_detections(packed.numpy())
     wboxes, wclasses, wscores = unpack_detections(want_packed)
@@ -117,7 +125,7 @@ def _f16_ulp(x: np.ndarray) -> np.ndarray:
     return np.where(mag >= 2.0 ** -14, 2.0 ** (np.floor(np.log2(np.maximum(mag, 2.0 ** -14))) - 10), 2.0 ** -24)
 
 
-def test_pipeline_d2h_half_within_one_ulp_of_jax(both):
+def test_pipeline_d2h_half_within_one_ulp_of_jax(both, running_rows):
     """float16 rows (running statistics, a padded batch): the port's cast
     rounds to nearest even as XLA's does, so each value is within one
     float16 ulp of the JAX package's float16 rows (the float32 rows agree to
@@ -129,8 +137,7 @@ def test_pipeline_d2h_half_within_one_ulp_of_jax(both):
     run = build_detection_pipeline(model, use_batch_stats=False, imsize=IMSIZE, max_detections=50, device="cpu",
                                    d2h_half=True)
     packed, _ = run(images, 2)
-    full, _ = build_detection_pipeline(model, use_batch_stats=False, imsize=IMSIZE, max_detections=50,
-                                       device="cpu")(images, 2)
+    full, _ = running_rows
     assert packed.dtype == torch.float16 and want.dtype == np.float16
     assert torch.equal(packed, full.to(torch.float16))
     got = packed.numpy()

@@ -99,8 +99,15 @@ def records(tmp_path_factory):
     return out
 
 
+@pytest.fixture(scope="module")
+def plain_pngs(records):
+    """`_expected_pngs` of the fixture's images with the default model and
+    float32 rows, which three tests expect: computed once."""
+    return _expected_pngs(np.asarray(RecordDataset(records).images))
+
+
 @pytest.mark.parametrize("source", ["voc", "records"])
-def test_cli_main_renders_the_pipeline_detections(tmp_path, records, source):
+def test_cli_main_renders_the_pipeline_detections(tmp_path, records, plain_pngs, source):
     """One PNG per image, numbered 1..4 across the two batches, each equal to
     the port's render of its pipeline's detections for that image."""
     flag = ["--data_dirs", str(FIXTURE)] if source == "voc" else ["--records_dir", str(records)]
@@ -108,19 +115,21 @@ def test_cli_main_renders_the_pipeline_detections(tmp_path, records, source):
     names = sorted(p.name for p in (tmp_path / "detection").glob("*.png"))
     assert names == [f"{i:06}.png" for i in range(1, 5)]
     assert [p.name for p in out["paths"]] == names and len(out["batch_s"]) == len(out["render_s"]) == 2
-    want = _expected_pngs(np.asarray(RecordDataset(records).images))
-    for path, w in zip(out["paths"], want):
+    for path, w in zip(out["paths"], plain_pngs):
         np.testing.assert_array_equal(np.asarray(Image.open(path).convert("RGB")), w)
 
 
 @pytest.mark.parametrize("flags", [["--batches_per_dispatch", "2"], ["--batches_per_dispatch", "3", "--d2h_half"]])
-def test_cli_flags_render_the_same_pngs(tmp_path, records, flags):
+def test_cli_flags_render_the_same_pngs(tmp_path, records, plain_pngs, flags):
     """K batches a call: the plain run's PNGs; float16 rows: the render of the
     float16-rounded rows, pixel for pixel, numbered as before."""
     out = inference.main(CLI_ARGS + ["--records_dir", str(records), "--result_dir", str(tmp_path)] + flags)
     names = [p.name for p in out["paths"]]
     assert names == [f"{i:06}.png" for i in range(1, 5)]
-    want = _expected_pngs(np.asarray(RecordDataset(records).images), d2h_half="--d2h_half" in flags)
+    if "--d2h_half" in flags:
+        want = _expected_pngs(np.asarray(RecordDataset(records).images), d2h_half=True)
+    else:
+        want = plain_pngs
     for path, w in zip(out["paths"], want):
         np.testing.assert_array_equal(np.asarray(Image.open(path).convert("RGB")), w)
 

@@ -6,7 +6,8 @@ sources (an AST scan of every import statement). Importing it also loads
 none of the packages it does not depend on (PIL, msgpack, tqdm); PIL is
 imported only inside the functions that decode images (the raw-VOC dataset)
 or draw them (utils/render.py). Every port test module caps torch's
-intra-op threads (an AST scan)."""
+intra-op threads, and jits no JAX reference as a closure over arrays (AST
+scans)."""
 
 import ast
 import subprocess
@@ -181,3 +182,166 @@ def test_every_port_test_module_caps_torch_threads():
         if caps != [f"torch.set_num_threads({TEST_THREADS})"]:
             wrong.append((path.name, caps))
     assert not wrong, f"each module needs one top-level torch.set_num_threads({TEST_THREADS}): {wrong}"
+
+
+# A JAX reference is jitted over its arrays as arguments. Closed over, an
+# array becomes a constant of the program: XLA folds the convolutions over a
+# closed-over trunk at compile time (tens of seconds a program on a cold
+# cache) and writes a cache entry that holds the arrays. The scan is
+# heuristic: an array is a name the enclosing scope assigned from one of
+# these calls (or a list of their results, or the unpacked result of any
+# call), or an attribute of `state`.
+JITTING = {"jax.jit", "jax.grad", "jax.value_and_grad"}
+ARRAY_CALL_PREFIXES = ("jnp.", "np.", "jax.numpy.", "jax.random.")
+ARRAY_CALLS = {"jax.device_get", "jax.device_put", "jax.tree.map", "jax.tree_util.tree_map"}
+ARRAY_METHODS = {"place_batch"}  # the JAX Trainer's device batch
+# (file, the test whose closure it is): why the closed-over value must be a
+# constant of the program
+_TRAINER_CONTEXT = ("the Trainer's division context: XLA folds the scale, a constant of the JAX Trainer's "
+                    "program, into a reciprocal; the test holds the port's reciprocal form to that")
+CLOSURE_EXEMPT = {
+    ("test_torch_quant.py", "test_quantize_act_matches_each_jax_context"): _TRAINER_CONTEXT,
+    ("test_torch_quant.py", "test_one_quantized_layer_matches_jax"): _TRAINER_CONTEXT,
+    ("test_torch_int8_prologue.py", "test_quantize_act_op_matches_jax"): _TRAINER_CONTEXT,
+}
+
+
+def _makes_array(value, unpacked: bool = False) -> bool:
+    """Whether an assigned value holds arrays: an array-making call, a
+    `state.` attribute, a list or tuple of them, or (`unpacked`) any call
+    whose result is unpacked into names, as a test's input helpers return."""
+    if isinstance(value, ast.Call):
+        func = ast.unparse(value.func)
+        return (unpacked or func.startswith(ARRAY_CALL_PREFIXES) or func in ARRAY_CALLS
+                or isinstance(value.func, ast.Attribute) and value.func.attr in ARRAY_METHODS)
+    if isinstance(value, (ast.ListComp, ast.GeneratorExp)):
+        return _makes_array(value.elt)
+    if isinstance(value, (ast.List, ast.Tuple)):
+        return any(_makes_array(e) for e in value.elts)
+    return isinstance(value, ast.Attribute) and ast.unparse(value).startswith("state.")
+
+
+def _bindings(scope) -> dict:
+    """{name: whether its binding makes an array} of the names that `scope`
+    (a module or function) binds in its own body: assignments, loop targets,
+    parameters, definitions and imports."""
+    bound = {}
+    if isinstance(scope, (ast.FunctionDef, ast.AsyncFunctionDef, ast.Lambda)):
+        a = scope.args
+        for arg in a.posonlyargs + a.args + a.kwonlyargs + [a.vararg, a.kwarg]:
+            if arg is not None:
+                bound[arg.arg] = False
+    todo = list(scope.body) if isinstance(scope.body, list) else [scope.body]
+    while todo:
+        node = todo.pop()
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.ClassDef)):
+            bound[node.name] = False
+            continue
+        if isinstance(node, ast.Lambda):
+            continue
+        if isinstance(node, (ast.Assign, ast.AnnAssign, ast.AugAssign)):
+            targets = node.targets if isinstance(node, ast.Assign) else [node.target]
+            unpacked = any(isinstance(t, (ast.Tuple, ast.List)) for t in targets)
+            array = node.value is not None and _makes_array(node.value, unpacked)
+            for target in targets:
+                for name in ast.walk(target):
+                    if isinstance(name, ast.Name):
+                        bound[name.id] = bound.get(name.id, False) or array
+        elif isinstance(node, (ast.Import, ast.ImportFrom)):
+            for alias in node.names:
+                bound[(alias.asname or alias.name).split(".")[0]] = False
+        elif isinstance(node, ast.Name) and isinstance(node.ctx, ast.Store):
+            bound.setdefault(node.id, False)
+        todo.extend(ast.iter_child_nodes(node))
+    return bound
+
+
+def _jitted_closures(source: str, filename: str = "<source>") -> list:
+    """(line, the enclosing top-level function's name, [free names that hold
+    arrays]) of each lambda or function handed to jax.jit / jax.grad /
+    jax.value_and_grad that reads an array of an enclosing scope."""
+    found = []
+
+    def visit(node, scopes):
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.Lambda)):
+            scopes = scopes + [node]
+        if isinstance(node, ast.Call) and ast.unparse(node.func) in JITTING and node.args:
+            fn, name = node.args[0], None
+            if isinstance(fn, ast.Name):  # a function defined in this or an enclosing scope
+                for scope in reversed(scopes):
+                    defs = [d for d in (scope.body if isinstance(scope.body, list) else [])
+                            if isinstance(d, (ast.FunctionDef, ast.AsyncFunctionDef)) and d.name == fn.id]
+                    defs += [d.value for d in (scope.body if isinstance(scope.body, list) else [])
+                             if isinstance(d, ast.Assign) and isinstance(d.value, ast.Lambda)
+                             and [ast.unparse(t) for t in d.targets] == [fn.id]]
+                    if defs:
+                        fn, name = defs[-1], fn.id
+                        break
+            if isinstance(fn, ast.Lambda) and name is None:
+                name = f"lambda@{fn.lineno}"
+            if name is not None:
+                own = _bindings(fn)
+                reads = {n.id for n in ast.walk(fn) if isinstance(n, ast.Name) and isinstance(n.ctx, ast.Load)}
+                state_reads = {n.value.id for n in ast.walk(fn) if isinstance(n, ast.Attribute)
+                               and isinstance(n.value, ast.Name) and n.value.id == "state"}
+                arrays = []
+                for free in sorted(reads - own.keys()):
+                    outer = [s for s in reversed(scopes) if s is not fn and free in _bindings(s)]
+                    if outer and (_bindings(outer[0])[free] or free in state_reads):
+                        arrays.append(free)
+                if arrays:
+                    top = scopes[1].name if len(scopes) > 1 and hasattr(scopes[1], "name") else name
+                    found.append((node.lineno, top, arrays))
+        for child in ast.iter_child_nodes(node):
+            visit(child, scopes)
+
+    tree = ast.parse(source, filename)
+    visit(tree, [tree])
+    return found
+
+
+@pytest.mark.parametrize("source,arrays", [
+    ("def f(params):\n  w = jnp.ones(3)\n  g = lambda p: p * w\n  return jax.jit(jax.grad(g))(params)", ["w"]),
+    ("def f(params):\n  w = jnp.ones(3)\n  return jax.jit(lambda p: p * w)(params)", ["w"]),
+    ("w = np.ones(3)\ndef g(p):\n  return p * w\nf = jax.jit(g)", ["w"]),
+    ("def f(state):\n  def loss(p):\n    return p * state.frozen\n  return jax.jit(jax.grad(loss))(state.params)",
+     ["state"]),
+    ("def f(trainer, x, y):\n  im, tg = trainer.place_batch(x, y)\n  def loss(p):\n    return p * im * tg\n"
+     "  return jax.grad(loss)(1.0)", ["im", "tg"]),
+    ("def f(state):\n  s = state.batch_stats\n  return jax.value_and_grad(lambda p: p * s)(1.0)", ["s"]),
+    ("def f(v):\n  v = jax.tree.map(np.asarray, v)\n  return jax.jit(lambda k: k + v)(0)", ["v"]),
+    ("def f(state):\n  def loss(p, frozen, im):\n    return p * frozen * im\n"
+     "  return jax.jit(jax.grad(loss))(state.params, state.frozen, jnp.ones(3))", []),
+    ("def f(model):\n  return jax.jit(lambda k: model.init(k, jnp.zeros((1, 8, 8, 3))))(0)", []),
+    ("def f(amax):\n  return jax.jit(lambda x: x / jnp.float32(amax))(1.0)", []),
+    ("def f():\n  x, amax = make_case()\n  return jax.jit(lambda v: v / amax)(x)", ["amax"]),
+    ("def f(a, b):\n  args = [jnp.asarray(v) for v in (a, b)]\n  def chain(x):\n    return x * args[0]\n"
+     "  return jax.jit(chain)(1.0)", ["args"]),
+    ("def f():\n  x = jnp.ones(3)\n  def g(x):\n    return x * 2\n  return jax.jit(g)(x)", []),
+], ids=["lambda-named", "lambda", "module-level", "state-attribute", "placed-batch", "state-attribute-named",
+        "tree-map", "arrays-as-arguments", "model", "scalar-argument", "unpacked-helper-result", "list-of-arrays",
+        "shadowed-by-a-parameter"])
+def test_jitted_closure_scan(source, arrays):
+    """The scan flags a jitted lambda or function that reads an array of an
+    enclosing scope (a jnp / np / jax.device_get / jax.tree.map result, a
+    placed batch, a `state` attribute), and not one whose arrays are its
+    arguments, nor a closed-over model or scalar."""
+    found = _jitted_closures(source)
+    assert (found[0][2] if found else []) == arrays
+
+
+def test_no_port_test_jits_a_closure_over_arrays():
+    """No JAX reference in tests/test_torch_*.py is jitted (or
+    differentiated) as a closure over arrays built outside it: the arrays
+    are its arguments. Parsed, not imported."""
+    modules = sorted(Path(__file__).parent.glob("test_torch_*.py"))
+    assert len(modules) > 20
+    bad, exempt = [], set()
+    for path in modules:
+        for line, name, arrays in _jitted_closures(path.read_text(), str(path)):
+            if (path.name, name) in CLOSURE_EXEMPT:
+                exempt.add((path.name, name))
+            else:
+                bad.append(f"{path.name}:{line} {name} closes over {arrays}")
+    assert not bad, "pass these arrays as arguments of the jitted function: " + "; ".join(bad)
+    assert exempt == set(CLOSURE_EXEMPT), f"exemptions the scan no longer needs: {set(CLOSURE_EXEMPT) - exempt}"

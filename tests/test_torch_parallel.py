@@ -355,12 +355,14 @@ def jax_mesh_run(jax_init):
                                is_trainable=JaxSSD.is_trainable, variables=jax.tree.map(jnp.asarray, jax_init[0]))
     im, tg = trainer.place_batch(images, targets)
 
-    def loss_fn(params):
-        v = {"params": merge_params(params, state.frozen), "batch_stats": state.batch_stats}
+    def loss_fn(params, frozen, batch_stats, im, tg, dfj):
+        # every array is an argument: closed over, XLA would fold the frozen
+        # trunk's convolutions into constants at compile time
+        v = {"params": merge_params(params, frozen), "batch_stats": batch_stats}
         out, _ = model.apply(v, im, train=True, use_batch_stats=True, mutable=["batch_stats"])
         return multibox_loss(out, tg, dfj, 1.0)
 
-    grads = jax.device_get(jax.jit(jax.grad(loss_fn))(state.params))
+    grads = jax.device_get(jax.jit(jax.grad(loss_fn))(state.params, state.frozen, state.batch_stats, im, tg, dfj))
     losses = []
     for _ in range(2):
         state, loss = trainer.train_step(state, im, tg)

@@ -55,3 +55,18 @@ def test_report_sums_files_and_orders_workers(tmp_path, capsys):
     assert lines[0].split() == ["file", "tests", "busy", "s"]
     assert [line.split()[:3] for line in lines[1:4]] == [["test_b.py", "1", "8"], ["test_a.py", "2", "5"],
                                                         ["test_c.py", "1", "1"]]
+
+
+def test_report_names_the_file_that_ended_last(tmp_path, capsys):
+    """The last line names the critical path: the file whose worker reached
+    its end last (not the busiest file), with its worker, start and end."""
+    st = _suite_times()
+    (tmp_path / "junit.xml").write_text(JUNIT)
+    (tmp_path / "log.txt").write_text(LOG)
+    st.report(tmp_path / "junit.xml", tmp_path / "log.txt")
+    assert capsys.readouterr().out.splitlines()[-1] == "ended last: test_b.py on gw1, start 0 s, end 8 s"
+    (tmp_path / "log.txt").write_text(LOG.replace("[gw1]", "[gw0]"))  # one worker runs all
+    st.report(tmp_path / "junit.xml", tmp_path / "log.txt")
+    lines = capsys.readouterr().out.splitlines()
+    assert "gw0: ends at 14 s: test_a.py@0, test_b.py@2, test_c.py@12" in lines  # 13.5 s
+    assert lines[-1] == "ended last: test_c.py on gw0, start 12 s, end 14 s"

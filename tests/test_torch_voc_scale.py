@@ -19,6 +19,7 @@ the repo's root tools/voc_scale_proof.py on the CPU:
 """
 
 import argparse
+import concurrent.futures
 import json
 import sys
 import textwrap
@@ -343,6 +344,19 @@ def test_bridge_writes_the_root_tools_weights_file(tmp_path, monkeypatch):
 
 
 # --------------------------------------------------- run_stage, for real
+STAGE_LIMIT_S = 60  # each stage below ends in seconds; one that hangs fails its test, not the run
+
+
+def _run_stage(*args, **kwargs) -> dict:
+    """`port_tool.run_stage` with a time limit of its own: past it the test
+    fails, and the stage's process (which ends by itself) is not waited for."""
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    try:
+        return pool.submit(port_tool.run_stage, *args, **kwargs).result(timeout=STAGE_LIMIT_S)
+    finally:
+        pool.shutdown(wait=False)
+
+
 EPOCHS_THEN_HANG = textwrap.dedent("""
     import time
     block = bytearray(64 << 20)  # resident memory for the RSS poll
@@ -356,13 +370,33 @@ EPOCHS_THEN_HANG = textwrap.dedent("""
 
 
 def test_run_stage_sigkills_after_the_target_epoch(tmp_path):
-    r = port_tool.run_stage("kill", ["-c", EPOCHS_THEN_HANG], tmp_path / "kill.log", kill_after_epoch=2,
-                            kill_grace_s=0.5)
+    r = _run_stage("kill", ["-c", EPOCHS_THEN_HANG], tmp_path / "kill.log", kill_after_epoch=2, kill_grace_s=0.5)
     assert r["killed"] and r["returncode"] == -9 and r["seconds"] < 30
     assert [e["epoch"] for e in r["epochs"]] == [1, 2] and r["epochs"][0]["img_per_s"] == 10.0
     assert r["rss_mb"]["start"] is not None and r["rss_mb"]["max"] >= 1 and r["rss_mb_series"][0][1] >= 1
     assert r["lines_after_last_epoch"] == ["[3, 10] loss: 1.4"] and r["compile_count"] == 0
     assert "[Epoch 2/5]" in (tmp_path / "kill.log").read_text()
+
+
+def test_run_stage_skips_a_reading_of_the_child_in_exec(tmp_path, monkeypatch):
+    """A first RSS reading under 1 MiB (the child still in its exec, as an
+    idle host's first poll finds it) is not a sample: the monitor reads
+    again at once, and the series starts at the running child's RSS."""
+    import io
+
+    real_open, reads = open, []
+
+    def first_read_in_exec(path, *args, **kwargs):
+        if str(path).startswith("/proc/") and str(path).endswith("/status"):
+            reads.append(path)
+            if len(reads) == 1:
+                return io.StringIO("Name:\tpython3\nVmRSS:\t    512 kB\n")
+        return real_open(path, *args, **kwargs)
+
+    monkeypatch.setattr(port_tool, "open", first_read_in_exec, raising=False)
+    r = _run_stage("kill", ["-c", EPOCHS_THEN_HANG], tmp_path / "kill.log", kill_after_epoch=2, kill_grace_s=0.5)
+    assert r["killed"] and len(reads) >= 2
+    assert r["rss_mb_series"][0][1] >= 1 and r["rss_mb"]["start"] == r["rss_mb_series"][0][1]
 
 
 def test_run_cli_keeps_launches_and_builds_are_listed(tmp_path, monkeypatch):
@@ -389,12 +423,12 @@ def test_run_cli_keeps_launches_and_builds_are_listed(tmp_path, monkeypatch):
     env = port_tool._sub_env()
     env["PYTHONPATH"] += f":{tmp_path / 'pkg'}"
     code = "from object_detection_torch2_tpu_torch.tools.voc_scale_proof import run_cli; run_cli('fake_cli')"
-    r = port_tool.run_stage("cli", ["-c", code, "7"], tmp_path / "cli.log", env=env,
-                            launches_path=tmp_path / "launches.json")
+    r = _run_stage("cli", ["-c", code, "7"], tmp_path / "cli.log", env=env,
+                   launches_path=tmp_path / "launches.json")
     assert r["returncode"] == 0 and not r["killed"] and [e["epoch"] for e in r["epochs"]] == [1]
     assert r["launches"] == {**dict.fromkeys(proof_common.KERNELS, 0), "nms_keep_sorted": 7}
     assert [c["what"] for c in r["compiles"]] == ["built abc/libfake.so"] and r["compiles_after_epoch1"] == 1
     (tmp_path / "_build" / "abc" / "libfake.so").unlink()
     (tmp_path / "_build" / "abc").rmdir()
     with pytest.raises(RuntimeError, match="stage cli failed rc=3"):
-        port_tool.run_stage("cli", ["-c", code, "1", "fail"], tmp_path / "cli.log", env=env)
+        _run_stage("cli", ["-c", code, "1", "fail"], tmp_path / "cli.log", env=env)
