@@ -54,9 +54,14 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    Kernel, plain and F.conv2d (cuDNN) times beside the bound;
 8. trajectory replay: tests/goldens/train_trajectory.npz (20 steps, batch 4,
    imsize 300) through `Trainer` with `conv12_kernel=True` in float32, to the
-   pins of tests/test_trajectory.py: per-step loss drift < 3e-3, step-0 drift
-   < 1e-4, final trainable-parameter and BN-statistics fingerprint budgets;
-   the frozen trunk bit-unchanged; one conv12 launch per forward. In
+   pins of tests/test_trajectory.py and of tests/test_torch_trajectory.py
+   (marked slow on the CPU): per-step loss drift < 3e-3, step-0 drift
+   < 1e-4, step-0 gradient fingerprints < 5e-3, the lr schedule at rtol
+   1e-12 and the optimizer's step count, final trainable-parameter and
+   BN-statistics fingerprint budgets (the trunk's statistics within 1e-4),
+   the eval forward after training max |d| < 3e-2 and mean < 3e-3; the
+   frozen trunk bit-unchanged, every running statistic moved, the
+   optimizer's state inventory; one conv12 launch per forward. In
    bfloat16 (the wgmma kernel) to the JAX package's budget: loss drift < 0.02,
    eval-forward max |d| < 0.6 and mean < 0.1. The 100-step golden in both
    dtypes, to `TRAJECTORY_100_PINS`;
@@ -69,7 +74,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    the same step with conv_1_2 on cuDNN (tolerances in `compare_conv12_paths`).
    Each dtype's forwards must have run that dtype's conv_1_2 kernel.
    ms per step (CUDA events) and img/s, and the step split into forward,
-   loss, backward and Adam;
+   loss, backward and Adam. Then an SGD step at one image in both dtypes
+   (`train_batch_one`): finite, the float32 loss against the CPU's;
 10. augment: `data.augment.apply_augment` on the card against the CPU on one
    seeded set of draws at 32 x 300 x 300 (the default probabilities), in
    float32 and bfloat16: GTs equal, erased pixels zero, pixels within the
@@ -160,7 +166,12 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    float32 with batch statistics and `--trunk_int8` in bfloat16 with running
    statistics, each on ground truth planted on that model's own detections:
    parity mAP 1.0 on both ranks as in one process, 3 NMS launches a rank and
-   33 of each int8 kernel a rank with --trunk_int8;
+   33 of each int8 kernel a rank with --trunk_int8. Then the slow tests of
+   tests/test_torch_parallel.py (`phase_parallel_ranks`): the SSD at imsize
+   264, global batch 4, on 2 gloo ranks on the card against one process at
+   the CPU tests' pins (float64 gradients and 2 SGD steps, an augmented
+   step, an int8-trunk step; the ranks bit-identical), each rank's int8
+   kernels launched;
 18. proofs (object_detection_torch2_tpu_torch/tools/): the overfit,
    generalization, pretrained-trunk and int8-budget proofs through their
    `main` at smoke size (overfit 3 epochs on the fixture; the others on 32 +
@@ -185,7 +196,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    starting at 0) come back in its record: conv12_bf16 in every training
    run, NMS in every evaluation, both int8 kernels in the int8 arms; RSS and
    device memory read; no threshold held (the full run's is);
-21. the kernels line (JSON; launches summed over the paths that ran each
+21. each phase's wall seconds (`phase seconds: {...}`), the kernels line
+   (JSON; launches summed over the paths that ran each
    kernel, by path, the data-parallel paths' summed over ranks), then the last line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
@@ -212,6 +224,27 @@ import torch
 import torch.nn.functional as F
 
 ROOT = Path(__file__).resolve().parent
+# The port's tests marked `slow` (left out of the default CPU run), by test id,
+# and the phase of this script that asserts their checks at the same pins on
+# the card. tests/test_torch_isolation.py holds every slow mark to this mapping.
+SLOW_TEST_PHASES = {
+    "tests/test_torch_cls_trajectory.py::test_cls_loss_trajectory": "phase_cls_trajectory",
+    "tests/test_torch_cls_trajectory.py::test_cls_lr_schedule": "phase_cls_trajectory",
+    "tests/test_torch_cls_trajectory.py::test_cls_step0_gradients": "phase_cls_trajectory",
+    "tests/test_torch_cls_trajectory.py::test_cls_final_params": "phase_cls_trajectory",
+    "tests/test_torch_cls_trajectory.py::test_cls_final_batch_stats": "phase_cls_trajectory",
+    "tests/test_torch_cls_trajectory.py::test_cls_eval_forward_after_training": "phase_cls_trajectory",
+    "tests/test_torch_parallel.py::test_full_ssd_float64_two_ranks_equal_one_rank": "phase_parallel_ranks",
+    "tests/test_torch_parallel.py::test_augmented_step_two_ranks_equal_one_rank": "phase_parallel_ranks",
+    "tests/test_torch_parallel.py::test_trunk_int8_step_two_ranks_equal_one_rank": "phase_parallel_ranks",
+    "tests/test_torch_trajectory.py::test_loss_trajectory": "phase_trajectory",
+    "tests/test_torch_trajectory.py::test_step0_gradients": "phase_trajectory",
+    "tests/test_torch_trajectory.py::test_final_params": "phase_trajectory",
+    "tests/test_torch_trajectory.py::test_final_batch_stats": "phase_trajectory",
+    "tests/test_torch_trajectory.py::test_frozen_trunk_is_bit_unchanged": "phase_trajectory",
+    "tests/test_torch_trajectory.py::test_eval_forward_after_training": "phase_trajectory",
+    "tests/test_torch_trajectory.py::test_bf16_trajectory_within_budget": "phase_trajectory",
+}
 GOLDEN = ROOT / "tests" / "goldens" / "ssd_forward_pinned.npz"
 TRAJECTORY = ROOT / "tests" / "goldens" / "train_trajectory.npz"
 TRAJECTORY_100 = ROOT / "tests" / "goldens" / "train_trajectory_100.npz"
@@ -869,11 +902,19 @@ BF16_BUDGET = (0.02, 0.6, 0.1)
 TRAJECTORY_100_PINS = {"float32": (8e-3, 0.2, 0.015), "bfloat16": (0.015, 1.5, 0.3)}
 
 
-def replay_trajectory(golden: Path, dtype) -> dict:
+def replay_trajectory(golden: Path, dtype, test_checks: bool = False) -> dict:
     """A trajectory golden's training run replayed on the card through
     `Trainer` with `conv12_kernel=True` in `dtype` (float32 parameters):
     per-step relative loss drift, the post-training eval forward's |d| on
-    the first 128 anchors, fingerprint budget use, conv12 launches."""
+    the first 128 anchors, fingerprint budget use, conv12 launches. With
+    `test_checks`, also what tests/test_torch_trajectory.py reads of the
+    20-step run: those gradients
+    (eval mode, batch statistics, through `Trainer._loss`, before the run;
+    their launch of the conv12 kernel is not counted), the learning rates,
+    the optimizer's and the state's step counts and its last rate, the
+    frozen inventory, the running statistics that moved and the optimizer's
+    state inventory."""
+    from object_detection_torch2_tpu_torch import true_float32
     from object_detection_torch2_tpu_torch.core.anchors import default_boxes
     from object_detection_torch2_tpu_torch.models.convert import jax_tree, ssd_state_dict_from_torch
     from object_detection_torch2_tpu_torch.models.ssd import SSD
@@ -890,6 +931,20 @@ def replay_trajectory(golden: Path, dtype) -> dict:
     state = trainer.init_state(lambda ps: adam_torch(ps, schedule, weight_decay=float(g["weight_decay"])),
                                state_dict=sd)
     frozen0 = {k: v.clone() for k, v in state.frozen.items()}
+    stats0 = {k: v.clone() for k, v in state.batch_stats.items()}
+    extra = {}
+    if test_checks:
+        images0, targets0 = trainer._inputs(*synth_trajectory_batch(0, n=bs))
+        state.model.eval()
+        with true_float32():
+            loss0 = trainer._loss(state.model(images0.permute(0, 2, 3, 1).contiguous(), use_batch_stats=True),
+                                  targets0)
+            grads0 = torch.autograd.grad(loss0, list(state.trainable.values()))
+        keys, fp = fingerprint_tree(jax_tree(dict(zip(state.trainable, (t.detach().cpu() for t in grads0)))))
+        assert list(keys) == [str(k) for k in g["grad_fp_keys"]], "gradient inventory differs from the golden's"
+        rel = np.abs(fp - g["grad_fp"]).max(axis=1) / np.maximum(g["grad_fp"][:, 0], 1e-4)
+        extra["grad_rel_max"], extra["grad_rel_key"] = float(rel.max()), str(keys[rel.argmax()])
+        del loss0, grads0
 
     conv12_cuda.launches = 0
     losses = []
@@ -901,6 +956,16 @@ def replay_trajectory(golden: Path, dtype) -> dict:
         raise AssertionError(f"{steps} forwards launched the conv12 kernel {launches} times")
     for name, p in state.frozen.items():
         assert torch.equal(p, frozen0[name]), f"frozen {name} changed"
+    if test_checks:
+        assert len(state.frozen) == 52 and all(not p.requires_grad for p in state.frozen.values())
+        moved = [not torch.equal(b, stats0[name]) for name, b in state.batch_stats.items()]
+        assert all(moved), f"{moved.count(False)} running statistics did not move"
+        assert set(state.optimizer.state) == set(state.trainable.values()), "optimizer state inventory"
+        np.testing.assert_allclose([schedule(s) for s in range(steps)], g["lrs"], rtol=1e-12)
+        assert state.optimizer.steps_taken() == state.step == steps
+        last_lr = state.optimizer.param_groups[0]["lr"]
+        assert abs(last_lr - g["lrs"][-1]) <= 1e-12 * abs(g["lrs"][-1]), f"last lr {last_lr}"
+        extra["lr_last"] = last_lr
     ref = g["losses"]
     drift = np.abs(np.array(losses) - ref) / np.maximum(np.abs(ref), 1e-9)
     images0, _ = synth_trajectory_batch(0, n=bs)
@@ -920,7 +985,7 @@ def replay_trajectory(golden: Path, dtype) -> dict:
             "loss_drift_argmax": int(drift.argmax()), "loss_drift_step0": float(drift[0]),
             "eval_fwd_maxabs": float(ev.max()), "eval_fwd_mean": float(ev.mean()),
             "param_budget_use": float(param_ratio.max()), "bn_budget_use": float((absd / (0.1 * l2 + 0.1)).max()),
-            "trunk_bn_max_abs": float(absd[trunk].max()), "losses": losses}
+            "trunk_bn_max_abs": float(absd[trunk].max()), "losses": losses, **extra}
 
 
 def phase_trajectory(card: str) -> dict:
@@ -930,17 +995,24 @@ def phase_trajectory(card: str) -> dict:
     budget; the 100-step golden in both dtypes to pins set from this card's
     measurement."""
     res = {}
-    r = replay_trajectory(TRAJECTORY, torch.float32)
+    r = replay_trajectory(TRAJECTORY, torch.float32, test_checks=True)
     assert r["loss_drift_max"] < 3e-3, f"loss trajectory drift {r['loss_drift_max']:.2e} at step {r['loss_drift_argmax']}"
     assert r["loss_drift_step0"] < 1e-4, f"step-0 loss drift {r['loss_drift_step0']:.2e}"
     assert r["param_budget_use"] <= 1, f"param drift over budget: {r['param_budget_use']:.3f}"
     assert r["trunk_bn_max_abs"] <= 1e-4, f"frozen-trunk BN statistics drift {r['trunk_bn_max_abs']:.2e}"
     assert r["bn_budget_use"] <= 1, f"BN statistics drift over budget: {r['bn_budget_use']:.3f}"
+    assert r["grad_rel_max"] < 5e-3, f"grad fingerprint drift {r['grad_rel_max']:.2e} ({r['grad_rel_key']})"
+    assert r["eval_fwd_maxabs"] < 3e-2, f"eval-after maxabs {r['eval_fwd_maxabs']:.2e}"
+    assert r["eval_fwd_mean"] < 3e-3, f"eval-after mean {r['eval_fwd_mean']:.2e}"
     res["float32"] = r
     print(f"trajectory replay float32, conv12 kernel: {r['steps']} steps, conv12 launches {r['conv12_launches']}, "
           f"loss drift max {r['loss_drift_max']:.2e} (pin 3e-3), step 0 {r['loss_drift_step0']:.2e} (pin 1e-4), "
+          f"step-0 gradients {r['grad_rel_max']:.2e} (pin 5e-3), lr schedule at rtol 1e-12 and {r['steps']} optimizer "
+          f"steps (last lr {r['lr_last']:.6g}), "
           f"param budget use {r['param_budget_use']:.3f}, BN statistics budget use {r['bn_budget_use']:.3f}, trunk BN "
-          f"max |d| {r['trunk_bn_max_abs']:.2e} (pin 1e-4), trunk bit-unchanged ({card})")
+          f"max |d| {r['trunk_bn_max_abs']:.2e} (pin 1e-4), eval forward max |d| {r['eval_fwd_maxabs']:.2e} (pin "
+          f"3e-2) mean {r['eval_fwd_mean']:.2e} (pin 3e-3), trunk bit-unchanged, every running statistic moved "
+          f"({card})")
     r = replay_trajectory(TRAJECTORY, torch.bfloat16)
     drift_pin, max_pin, mean_pin = BF16_BUDGET
     if not (np.isfinite(r["losses"]).all() and r["loss_drift_max"] < drift_pin and r["eval_fwd_maxabs"] < max_pin
@@ -1113,6 +1185,43 @@ def phase_training(card: str) -> dict:
               f"{split['adam']:.2f} ms; peak {peak_gb:.1f} GB; conv_1_2 kernel vs cuDNN step: {paths} ({card})")
         del trainer, state
         torch.cuda.empty_cache()
+    res["batch_one"] = train_batch_one(card, df, images[0][:1], targets[0][:1])
+    return res
+
+
+def train_batch_one(card: str, df, images, targets) -> dict:
+    """A training step at one image (ROADMAP Queue 3: cuDNN's backward of a
+    detector head read the one-image slice of the outputs' gradient at a
+    misaligned address, so every training at one image a process failed in
+    its first step): an SGD step of the seeded SSD in float32 and bfloat16
+    on the card, loss, gradients and updated parameters finite; the float32
+    loss against the same step's on the CPU at rtol 1e-4 (the trajectory's
+    step-0 pin)."""
+    from object_detection_torch2_tpu_torch.models.ssd import SSD
+    from object_detection_torch2_tpu_torch.train.trainer import Trainer
+
+    def step(dtype, device):
+        trainer = Trainer(SSD(num_classes=21, dtype=dtype, seed=0, conv12_kernel=True), default_boxes=df,
+                          device=device)
+        state = trainer.init_state(lambda ps: torch.optim.SGD(ps, lr=1e-3))
+        loss = float(trainer.train_step(state, images, targets))
+        finite = all(bool(torch.isfinite(p).all()) for p in state.trainable.values())
+        return loss, finite
+
+    res = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        loss, finite = step(dtype, DEVICE)
+        torch.cuda.synchronize()
+        if not (np.isfinite(loss) and finite):
+            raise AssertionError(f"a training step at one image in {dtype}: loss {loss}, parameters finite {finite}")
+        res[str(dtype).replace("torch.", "")] = loss
+    cpu_loss, _ = step(torch.float32, "cpu")
+    rel = abs(res["float32"] - cpu_loss) / abs(cpu_loss)
+    if rel >= 1e-4:
+        raise AssertionError(f"a float32 step at one image: loss {res['float32']} on the card, {cpu_loss} on the CPU")
+    res["float32_rel_to_cpu"] = rel
+    print(f"training at one image: an SGD step in float32 (loss {res['float32']:.6f}, {rel:.2e} of the CPU's) and "
+          f"bfloat16 (loss {res['bfloat16']:.6f}), every parameter finite ({card})")
     return res
 
 
@@ -2576,6 +2685,124 @@ def dp_gloo_evaluate(card: str, tmp: Path) -> dict:
     return res
 
 
+def dp_ranks_run(mesh) -> dict:
+    """tests/test_torch_parallel.py's slow runs, on the card: the seeded SSD
+    at imsize 264 on its batches (global 4, this rank's rows under a mesh),
+    SGD lr 1e-3, each run's losses, parameters and running statistics on the
+    host, and the kernels' launches over the three:
+    - "ssd64": computing in float64, the trainable gradients through the
+      synced statistics (the BN buffers restored after), then 2 steps;
+    - "aug": one augmented step on uint8 images (seed 3);
+    - "int8": one `--trunk_int8` step in running-statistics mode, every
+      trunk amax 4.0."""
+    from object_detection_torch2_tpu_torch import true_float32
+    from object_detection_torch2_tpu_torch.core.anchors import default_boxes, feature_grids_for
+    from object_detection_torch2_tpu_torch.models import quant
+    from object_detection_torch2_tpu_torch.models.ssd import SSD
+    from object_detection_torch2_tpu_torch.parallel.mesh import all_reduce_mean_, local_rows
+    from object_detection_torch2_tpu_torch.tools.common import launch_counts
+    from object_detection_torch2_tpu_torch.train.trainer import Trainer
+
+    reset_launches()
+    rng = np.random.default_rng(7)
+    images = rng.uniform(0, 1, (4, 264, 264, 3)).astype(np.float32)
+    targets = np.zeros((4, 3, 25), np.float32)
+    targets[:, 0, :4] = [0.5, 0.5, 0.4, 0.4]
+    targets[:, 0, 10] = 1.0
+    targets[:, 1, :4] = [0.25, 0.25, 0.2, 0.3]
+    targets[:, 1, 5] = 1.0
+    u8 = np.random.default_rng(11).integers(0, 256, (4, 264, 264, 3), dtype=np.uint8)
+    images, targets, u8 = (local_rows(a, mesh) for a in (images, targets, u8))
+    df = default_boxes(feature_grids_for(264))
+
+    def trainer_of(model, **kwargs):
+        trainer = Trainer(model, default_boxes=df, device=None if mesh is not None else DEVICE, mesh=mesh, **kwargs)
+        return trainer, trainer.init_state(lambda ps: torch.optim.SGD(ps, lr=1e-3))
+
+    def result(state, losses):
+        return {"losses": [float(v) for v in losses],
+                "params": {k: p.detach().cpu().clone() for k, p in state.trainable.items()},
+                "stats": {k: b.cpu().clone() for k, b in state.batch_stats.items()}}
+
+    trainer, state = trainer_of(SSD(num_classes=21, dtype=torch.float64))
+    buffers = {k: v.detach().clone() for k, v in state.model.state_dict().items()}
+    x, y = trainer._inputs(images, targets)
+    state.model.train()
+    with true_float32():
+        loss = trainer._loss(trainer._forward(state.model, x), y)
+        grads = torch.autograd.grad(loss, list(state.trainable.values()), materialize_grads=True)
+    if mesh is not None:
+        all_reduce_mean_(grads, mesh)
+    state.model.load_state_dict(buffers)
+    out = {"ssd64": {"grads": {k: g.cpu() for k, g in zip(state.trainable, grads)},
+                     **result(state, [trainer.train_step(state, images, targets) for _ in range(2)])}}
+    trainer, state = trainer_of(SSD(num_classes=21), augment=True, seed=3)
+    out["aug"] = result(state, [trainer.train_step(state, u8, targets)])
+    trainer, state = trainer_of(SSD(num_classes=21, trunk_int8=True),
+                                quant={f"amax_{layer}": 4.0 for layer in quant.QUANT_LAYERS}, use_batch_stats=False)
+    out["int8"] = result(state, [trainer.train_step(state, images, targets)])
+    out["launches"] = launch_counts()
+    del trainer, state
+    torch.cuda.empty_cache()
+    return out
+
+
+# tests/test_torch_parallel.py's pins, by run and part: (rtol, atol)
+DP_RANKS_PINS = {"ssd64": {"grads": (1e-6, 1e-8), "losses": (1e-5, 0), "params": (1e-4, 4e-6), "stats": (1e-3, 1e-5)},
+                 "aug": {"losses": (1e-5, 0), "params": (1e-4, 4e-6), "stats": (1e-3, 1e-5)},
+                 "int8": {"losses": (1e-5, 0), "params": (1e-4, 4e-6)}}
+
+
+def phase_parallel_ranks(card: str) -> dict:
+    """tests/test_torch_parallel.py's slow tests on the card: the full SSD at
+    imsize 264, global batch 4, as 2 gloo ranks on the one card (`launch`)
+    against one process over the whole batch (`dp_ranks_run`), at the CPU
+    tests' pins (`DP_RANKS_PINS`): the float64 run's gradients through the
+    synced BatchNorm at rtol 1e-6 / atol 1e-8 and its 2 steps' losses at
+    rtol 1e-5, parameters at rtol 1e-4 / atol 4e-6 and running statistics at
+    rtol 1e-3 / atol 1e-5; the augmented step's losses, parameters and
+    statistics and the int8-trunk step's losses and parameters likewise; in
+    each run the two ranks' losses, parameters and statistics bit-identical.
+    Each rank launches both int8 kernels; the path's launches are the
+    ranks'."""
+    from object_detection_torch2_tpu_torch.parallel.mesh import launch
+
+    t0 = time.perf_counter()
+    ranks = launch(dp_ranks_run, DP_WORLD, backend="gloo", devices=["cuda:0"] * DP_WORLD, timeout=DP_RANK_TIMEOUT)
+    one = dp_ranks_run(None)
+    use = {}
+    for run, pins in DP_RANKS_PINS.items():
+        a, b = ranks[0][run], ranks[1][run]
+        assert a["losses"] == b["losses"], (run, a["losses"], b["losses"])
+        for part in ("params", "stats"):
+            for k in a[part]:
+                assert torch.equal(a[part][k], b[part][k]), (run, part, k)
+        use[run] = {}
+        for part, (rtol, atol) in pins.items():
+            got, want = a[part], one[run][part]
+            if part == "losses":
+                got, want = ({"losses": torch.tensor(v, dtype=torch.float64)} for v in (got, want))
+            assert got.keys() == want.keys(), (run, part)
+            worst = 0.0
+            for k in want:
+                g, w = got[k].double().numpy(), want[k].double().numpy()
+                np.testing.assert_allclose(g, w, rtol=rtol, atol=atol, err_msg=f"{run} {part} {k}")
+                worst = max(worst, float((np.abs(g - w) / (atol + rtol * np.abs(w))).max()))
+            use[run][part] = worst
+    # the ranks' runs are the path; the one-process run is what they are held to
+    for rank in ranks:
+        if rank["launches"]["int8_conv"] == 0 or rank["launches"]["quantize_act"] == 0:
+            raise AssertionError(f"a rank's int8-trunk step launched {rank['launches']}")
+    launches = {k: ranks[0]["launches"][k] + ranks[1]["launches"][k] for k in one["launches"]}
+    res = {"losses": {run: ranks[0][run]["losses"] for run in DP_RANKS_PINS},
+           "one_process_losses": {run: one[run]["losses"] for run in DP_RANKS_PINS}, "tolerance_use": use,
+           "launches": launches, "phase_s": time.perf_counter() - t0}
+    print(f"data parallel, tests/test_torch_parallel.py's slow runs, 2 gloo ranks on one card against one process, "
+          f"SSD at 264, global batch 4 (float64 gradients and 2 steps, an augmented step, an int8-trunk step): ranks "
+          f"bit-identical, tolerance use (1 = at the pin) {use}; launches {launches}; {res['phase_s']:.1f} s ({card})")
+    return res
+
+
 def phase_data_parallel(card: str) -> dict:
     """Data parallelism (parallel/mesh.py) on the one card: NCCL at world
     size 1 (the card has no second device, and NCCL refuses two ranks on one
@@ -3001,6 +3228,17 @@ def conv12_entry(conv: dict, training: dict, train_cli: dict, trajectory: dict, 
     return entry
 
 
+PHASE_SECONDS = {}
+
+
+def timed(phase, card: str):
+    """phase(card), its wall seconds kept in PHASE_SECONDS under its name."""
+    t0 = time.perf_counter()
+    out = phase(card)
+    PHASE_SECONDS[phase.__name__] = round(time.perf_counter() - t0, 1)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", type=Path, help="also write every measurement to this JSON file")
@@ -3032,15 +3270,15 @@ def main(argv=None) -> int:
     if sass["int8_conv"]["IGMMA"] == 0:
         raise AssertionError("csrc/int8_conv.cu's machine code has no int8 wgmma instruction (IGMMA)")
 
-    results = {"card": card, "sass_tensor_core": sass, "reference": phase_reference(card)}
-    results["kernel_vs_plain"] = phase_kernel_vs_plain(card)
-    results["nms_batch256"] = phase_nms_batch256(card)
-    main_path = phase_main_path(card)
+    results = {"card": card, "sass_tensor_core": sass, "reference": timed(phase_reference, card)}
+    results["kernel_vs_plain"] = timed(phase_kernel_vs_plain, card)
+    results["nms_batch256"] = timed(phase_nms_batch256, card)
+    main_path = timed(phase_main_path, card)
     entries = [kernel_entry(main_path, card)]
     results["main_path"] = main_path
-    results["evaluation"] = phase_evaluation(card)
-    results["inference_cli"] = phase_inference_cli(card)
-    results["serving_plumbing"] = phase_serving_plumbing(card)
+    results["evaluation"] = timed(phase_evaluation, card)
+    results["inference_cli"] = timed(phase_inference_cli, card)
+    results["serving_plumbing"] = timed(phase_serving_plumbing, card)
     nms_paths = {path: sum(results[key][d]["launches"] for d in ("float32", "bfloat16"))
                  for path, key in (("serving", "main_path"), ("evaluation", "evaluation"),
                                    ("inference_cli", "inference_cli"))}
@@ -3049,36 +3287,42 @@ def main(argv=None) -> int:
     nms_paths["serving_plumbing"] = (results["serving_plumbing"]["predictor_launches"]
                                      + results["serving_plumbing"]["export_launches"])
     entries[0].update(launches=sum(nms_paths.values()), launches_by_path=nms_paths)
-    results["conv12_vs_plain"] = phase_conv12(card)
-    results["trajectory"] = phase_trajectory(card)
-    results["training"] = phase_training(card)
-    results["augment"] = phase_augment(card)
-    results["train_cli"] = phase_train_cli(card)
-    results["classification_cli"] = phase_classification_cli(card)
-    results["cls_trajectory"] = phase_cls_trajectory(card)
-    results["device_cache_cli"] = phase_device_cache_cli(card)
+    results["conv12_vs_plain"] = timed(phase_conv12, card)
+    results["trajectory"] = timed(phase_trajectory, card)
+    results["training"] = timed(phase_training, card)
+    results["augment"] = timed(phase_augment, card)
+    results["train_cli"] = timed(phase_train_cli, card)
+    results["classification_cli"] = timed(phase_classification_cli, card)
+    results["cls_trajectory"] = timed(phase_cls_trajectory, card)
+    results["device_cache_cli"] = timed(phase_device_cache_cli, card)
     entries.append(conv12_entry(results["conv12_vs_plain"], results["training"], results["train_cli"],
                                 results["trajectory"], results["device_cache_cli"]))
-    results["int8"] = phase_int8(card)
+    results["int8"] = timed(phase_int8, card)
     entries.append(int8_entry(results["int8"]))
     entries.append(quantize_entry(results["int8"]))
-    results["data_parallel"] = phase_data_parallel(card)
+    results["data_parallel"] = timed(phase_data_parallel, card)
     dp = dp_launches(results["data_parallel"])
     for entry, n in ((entries[0], dp["nms_keep_sorted"]), (entries[1], dp["conv12"]),
                      (entries[1]["bfloat16"], dp["conv12_bf16"]), (entries[2], dp["int8_conv"]),
                      (entries[3], dp["quantize_act"])):
         entry["launches_by_path"]["data_parallel"] = n
         entry["launches"] += n
-    results["proofs"] = phase_proofs(card)
+    results["parallel_ranks"] = timed(phase_parallel_ranks, card)
+    pc = results["parallel_ranks"]["launches"]
+    for entry, key in ((entries[0], "nms_keep_sorted"), (entries[1], "conv12"), (entries[1]["bfloat16"], "conv12_bf16"),
+                       (entries[2], "int8_conv"), (entries[3], "quantize_act")):
+        entry["launches_by_path"]["parallel_ranks"] = pc[key]
+        entry["launches"] += pc[key]
+    results["proofs"] = timed(phase_proofs, card)
     pr = proof_launches(results["proofs"])
     for entry, n in ((entries[0], pr["nms_keep_sorted"]), (entries[1], pr["conv12"]),
                      (entries[1]["bfloat16"], pr["conv12_bf16"]), (entries[2], pr["int8_conv"]),
                      (entries[3], pr["quantize_act"])):
         entry["launches_by_path"]["proofs"] = n
         entry["launches"] += n
-    results["serve_artifact"] = phase_serve_artifact(card)
+    results["serve_artifact"] = timed(phase_serve_artifact, card)
     sa = results["serve_artifact"]
-    results["voc_scale"] = phase_voc_scale(card)
+    results["voc_scale"] = timed(phase_voc_scale, card)
     vs = results["voc_scale"]["launches"]["total"]
     for entry, key in ((entries[0], "nms_keep_sorted"), (entries[2], "int8_conv"), (entries[3], "quantize_act")):
         n = sa["launches"][key] + sa["trunk_int8"]["launches"][key]
@@ -3096,10 +3340,12 @@ def main(argv=None) -> int:
         entry["launches_by_path"]["cls_trajectory"] = cls[key]
         entry["launches"] += cls[key]
     results["kernels"] = entries
+    results["phase_seconds"] = PHASE_SECONDS
     if args.out:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps(results, indent=1))
 
+    print(f"phase seconds: {PHASE_SECONDS}")
     print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -158,6 +158,24 @@ def output_dtype(dtype: torch.dtype) -> torch.dtype:
     return REFERENCE_DTYPE if dtype == REFERENCE_DTYPE else torch.float32
 
 
+class _FreshGrad(torch.autograd.Function):
+    """Identity whose backward passes on a copy of its gradient. A head's
+    gradient is a slice of the concatenated outputs' gradient: with one
+    image it is a contiguous view whose start is not 16-byte aligned (the
+    earlier heads' rows times C + 4 = 25 floats), and cuDNN's convolution
+    backward on the card reads such a view at a misaligned address (a CUDA
+    error). With more images the slice is strided and cuDNN copies it
+    itself, so the copy here costs nothing more there."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.clone(memory_format=torch.contiguous_format)
+
+
 class SSD(nn.Module):
     """SSD300. Input (N, H, W, 3) in [0, 1]; output (N, P, num_classes + 4) float32.
 
@@ -322,5 +340,6 @@ class SSD(nn.Module):
                 y = self._conv(det, fm)
             # (N, A*(C+4), H, W) -> (N, H*W*A, C+4): rows h-major, then w, then
             # anchor (reference: ssd.py:103)
-            outputs.append(y.permute(0, 2, 3, 1).reshape(n, -1, self.num_classes + 4))
+            y = y.permute(0, 2, 3, 1).reshape(n, -1, self.num_classes + 4)
+            outputs.append(_FreshGrad.apply(y) if y.requires_grad else y)
         return torch.cat(outputs, dim=1).to(output_dtype(self.dtype))

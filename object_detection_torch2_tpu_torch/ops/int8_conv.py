@@ -20,10 +20,19 @@ the epilogue `dequantize`: float32(acc) * scale rounded to `out_dtype`, plus
 `bias` in `out_dtype`. `scale` is the float32 (Cout,) vector sx * sw that the
 caller computes first, as the JAX package writes (y32 * (sx * sw)).
 
-The plain version is exact: a float64 convolution of the int8 values, whose
-products (<= 127^2) and sums (< 127^2 * 9 * 1024 < 2^53) round nowhere, cast
-to int32. The epilogue's multiply and add are two PyTorch ops, so no FMA
-contracts them (the kernel uses __fmul_rn / __fadd_rn to match).
+The plain version is exact in either of its two forms, both cast to int32:
+- on a CPU tensor, float32 convolutions over chunks of at most
+  `chunk_channels(kh, kw)` = floor(2^24 / (128^2 * kh * kw)) input channels
+  (113 for 3 x 3, 1,024 for 1 x 1), each cast to int32, the chunks added in
+  int32. Every partial sum of a chunk, in any order, is an integer of
+  magnitude <= 128^2 * kh * kw * chunk <= 2^24, which float32 holds exactly;
+  the int32 total stays under 128^2 * 9 * 1024 < 2^31. On the CPU a
+  float32 conv runs on oneDNN, a float64 one on PyTorch's generic path;
+- on a CUDA tensor, one float64 convolution, whose products and sums
+  (< 2^53) round nowhere: cuDNN's float32 path may use TF32, which would not
+  be exact.
+The epilogue's multiply and add are two PyTorch ops, so no FMA contracts them
+(the kernel uses __fmul_rn / __fadd_rn to match).
 
 `quantize_act(x, sx, reciprocal)` is the conv input's quantize, through the
 custom op `torch.ops.odt.quantize_act`: on a CPU tensor the plain version
@@ -66,13 +75,35 @@ def dequantize(acc: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor | None
     return y
 
 
+def chunk_channels(kh: int, kw: int) -> int:
+    """The most input channels whose float32 partial sums of int8 products
+    (-128 included) stay integers of magnitude <= 2^24."""
+    return (1 << 24) // (128 * 128 * kh * kw)
+
+
+def int32_sums(x8: torch.Tensor, w8: torch.Tensor, stride: int, pad: int) -> torch.Tensor:
+    """The exact int32 sums of the convolution, (N, Cout, Ho, Wo): float32
+    convs over channel chunks on the CPU, one float64 conv elsewhere."""
+    w = w8.permute(0, 3, 1, 2)
+    if x8.device.type != "cpu":
+        return F.conv2d(x8.to(torch.float64), w.to(torch.float64), stride=stride, padding=pad).to(torch.int32)
+    cin = x8.shape[1]
+    n_chunks = -(-cin // chunk_channels(w.shape[2], w.shape[3]))
+    size = -(-cin // n_chunks)
+    acc = None
+    for c0 in range(0, cin, size):
+        part = F.conv2d(x8[:, c0:c0 + size].to(torch.float32), w[:, c0:c0 + size].to(torch.float32),
+                        stride=stride, padding=pad).to(torch.int32)
+        acc = part if acc is None else acc.add_(part)
+    return acc
+
+
 def int8_conv_plain(x8: torch.Tensor, w8: torch.Tensor, scale: torch.Tensor | None = None,
                     bias: torch.Tensor | None = None, stride: int = 1, pad: int = 1,
                     out_dtype: torch.dtype | None = None) -> torch.Tensor:
-    """The plain version on any device: exact int32 sums by a float64
-    convolution, then the epilogue when `scale` is given."""
-    acc = F.conv2d(x8.to(torch.float64), w8.permute(0, 3, 1, 2).to(torch.float64), stride=stride, padding=pad)
-    acc = acc.to(torch.int32).contiguous(memory_format=torch.channels_last)
+    """The plain version on any device: exact int32 sums (`int32_sums`),
+    then the epilogue when `scale` is given."""
+    acc = int32_sums(x8, w8, stride, pad).contiguous(memory_format=torch.channels_last)
     if scale is None:
         return acc
     return dequantize(acc, scale, bias, out_dtype).contiguous(memory_format=torch.channels_last)

@@ -10,8 +10,9 @@ boxes; the 0/1 keep mask multiplies ALL score columns (including void).
   semantics oracle of the tests.
 - `_blocked_keep_sorted`: the plain version of the sweep kernel — score-sorted
   candidates in 128-wide blocks, an exact triangular fixpoint inside each
-  block, every kept pivot suppressing all later candidates, and an early exit
-  once nothing is alive at or after the current block.
+  block, every kept pivot suppressing all later candidates still alive (their
+  IoUs alone are taken), and an early exit once nothing is alive at or after
+  the current block.
 - `nms_keep_mask`: compacted tiers (128, 1024) with an exact fall-through to the
   full sort. Every sweep — the full one and both tiers — goes through
   `ops.nms_cuda.keep_sorted`: the CUDA kernel for a tensor on the card, the
@@ -81,6 +82,13 @@ def _block_self_suppress(alive: torch.Tensor, iou_tile: torch.Tensor, iou_thresh
         k = k_new
 
 
+def _front(mask: torch.Tensor) -> torch.Tensor:
+    """(N, W) indices that put each row's set entries first, in order; W is
+    the most any row has."""
+    w = int(mask.sum(dim=1).max())
+    return torch.sort(mask.to(torch.uint8), dim=1, descending=True, stable=True).indices[:, :w]
+
+
 def _blocked_keep_sorted(sorted_boxes: torch.Tensor, sorted_valid: torch.Tensor,
                          iou_thresh: float) -> torch.Tensor:
     """Blocked greedy sweep over SCORE-SORTED candidates -> keep mask in sorted
@@ -89,7 +97,11 @@ def _blocked_keep_sorted(sorted_boxes: torch.Tensor, sorted_valid: torch.Tensor,
     The plain version of the CUDA kernel (csrc/nms_keep_sorted.cu). Each kept
     pivot block suppresses only the candidates after the block; the JAX
     package computes the cross IoU over the whole row and masks the earlier
-    columns, which decides the same thing."""
+    columns, which decides the same thing. Only the block's kept pivots
+    suppress, and only candidates still alive can be suppressed, so the
+    cross IoUs are taken for those pairs alone (each row's in front, padded
+    to the batch's widest): each IoU is `pairwise_iou`'s elementwise value
+    for its pair, so every decision is the full cross product's."""
     p = sorted_boxes.shape[1]
     keep = sorted_valid.clone()
     for start in range(0, p, BLOCK):
@@ -102,9 +114,14 @@ def _blocked_keep_sorted(sorted_boxes: torch.Tensor, sorted_valid: torch.Tensor,
         blk = sorted_boxes[:, start:stop]
         kept_blk = _block_self_suppress(keep[:, start:stop], pairwise_iou(blk, blk), iou_thresh)
         keep[:, start:stop] = kept_blk
-        if stop < p:
-            hit = pairwise_iou(blk, sorted_boxes[:, stop:]) > iou_thresh  # (N, B, P - stop)
-            keep[:, stop:] &= ~(hit & kept_blk[:, :, None]).any(dim=1)
+        if stop == p:
+            break
+        later = keep[:, stop:]
+        pivots, alive = _front(kept_blk), _front(later)
+        if pivots.shape[1] and alive.shape[1]:
+            hit = pairwise_iou(_take_boxes(blk, pivots), _take_boxes(sorted_boxes[:, stop:], alive)) > iou_thresh
+            hit = (hit & torch.gather(kept_blk, 1, pivots)[:, :, None]).any(dim=1)
+            keep[:, stop:] = later.scatter(1, alive, torch.gather(later, 1, alive) & ~hit)
     return keep
 
 

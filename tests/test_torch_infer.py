@@ -119,6 +119,27 @@ def test_predictor_without_device_needs_a_card():
         build_detection_pipeline(SSD(num_classes=21), True, imsize=IMSIZE, device="cuda")
 
 
+def test_pipeline_convolutions_run_without_tf32(monkeypatch):
+    """The live serving and evaluation pipeline's float32 convolutions run
+    with cuDNN's TF32 off (the SSD forward's `true_float32()`), as training
+    and the exported program do, and the process's own setting is left as
+    it was."""
+    flags = []
+    conv2d = torch.nn.functional.conv2d
+
+    def recording(*args, **kwargs):
+        flags.append(torch.backends.cudnn.allow_tf32)
+        return conv2d(*args, **kwargs)
+
+    monkeypatch.setattr(torch.nn.functional, "conv2d", recording)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    images = np.random.default_rng(1).integers(0, 255, (1, IMSIZE, IMSIZE, 3)).astype(np.uint8)
+    build_detection_pipeline(SSD(num_classes=21, seed=0), use_batch_stats=True, imsize=IMSIZE,
+                             device="cpu")(images, 1)
+    assert flags and not any(flags), flags
+    assert torch.backends.cudnn.allow_tf32
+
+
 def _f16_ulp(x: np.ndarray) -> np.ndarray:
     """One float16 ulp at each value's magnitude (normals; 2^-24 below)."""
     mag = np.abs(x.astype(np.float32))

@@ -7,7 +7,9 @@ none of the packages it does not depend on (PIL, msgpack, tqdm); PIL is
 imported only inside the functions that decode images (the raw-VOC dataset)
 or draw them (utils/render.py). Every port test module caps torch's
 intra-op threads, and jits no JAX reference as a closure over arrays (AST
-scans)."""
+scans). Every port test marked `slow` is listed by its id in chip_smoke.py's
+`SLOW_TEST_PHASES` with the phase that holds its checks on the card, and that
+phase exists (an AST scan that imports nothing)."""
 
 import ast
 import subprocess
@@ -345,3 +347,220 @@ def test_no_port_test_jits_a_closure_over_arrays():
                 bad.append(f"{path.name}:{line} {name} closes over {arrays}")
     assert not bad, "pass these arrays as arguments of the jitted function: " + "; ".join(bad)
     assert exempt == set(CLOSURE_EXEMPT), f"exemptions the scan no longer needs: {set(CLOSURE_EXEMPT) - exempt}"
+
+
+def _is_slow_mark(node) -> bool:
+    """`pytest.mark.slow` or `mark.slow`, called or not."""
+    if isinstance(node, ast.Call):
+        node = node.func
+    return (isinstance(node, ast.Attribute) and node.attr == "slow"
+            and (isinstance(node.value, ast.Attribute) and node.value.attr == "mark"
+                 or isinstance(node.value, ast.Name) and node.value.id == "mark"))
+
+
+def _is_fixture(node) -> bool:
+    """`pytest.fixture` or `fixture`, called or not."""
+    if isinstance(node, ast.Call):
+        node = node.func
+    return (isinstance(node, ast.Attribute) and node.attr == "fixture"
+            or isinstance(node, ast.Name) and node.id == "fixture")
+
+
+# what the card's machine cannot run; the JAX package's utils/testing.py is
+# numpy only, and chip_smoke.py keeps its own copy of what it uses of it
+JAX_MODULES = ("jax", "jaxlib", "flax", "optax", "object_detection_torch2_tpu")
+JAX_PACKAGE_NUMPY_ONLY = "object_detection_torch2_tpu.utils.testing"
+
+
+def _is_jax_module(name: str) -> bool:
+    if name == JAX_PACKAGE_NUMPY_ONLY or name.startswith(JAX_PACKAGE_NUMPY_ONLY + "."):
+        return False
+    return any(name == m or name.startswith(m + ".") for m in JAX_MODULES)
+
+
+def _jax_imports(node) -> set:
+    """The names that the import statements within `node` bind to the JAX
+    package or JAX ("jax" itself included when any is imported)."""
+    names = set()
+    for n in ast.walk(node):
+        if isinstance(n, ast.Import):
+            names |= {a.asname or a.name.split(".")[0] for a in n.names if _is_jax_module(a.name)}
+        elif isinstance(n, ast.ImportFrom) and n.level == 0 and _is_jax_module(n.module or ""):
+            names |= {a.asname or a.name for a in n.names} | {"jax"}
+    return names
+
+
+def _args(fn) -> list:
+    a = fn.args
+    return [x.arg for x in a.posonlyargs + a.args + a.kwonlyargs]
+
+
+def _slow_tests(source: str, rel: str = "tests/test_torch_x.py") -> dict:
+    """{test id: whether it reaches JAX or the JAX package} for each test of a
+    module marked `slow`: by a module-level `pytestmark` that is or holds the
+    mark, or by a decorator (called or not) on the function, its class or the
+    method. A test reaches JAX when its body imports JAX or the JAX package,
+    names what the module imports of them, takes a fixture named `jax` or
+    `jax_*` that the module does not define, or names or takes a module-level
+    function (a helper or a fixture) that reaches them."""
+    tree = ast.parse(source, rel)
+    module_slow = False
+    for node in tree.body:
+        if isinstance(node, (ast.Assign, ast.AnnAssign)):
+            targets = node.targets if isinstance(node, ast.Assign) else [node.target]
+            values = node.value.elts if isinstance(node.value, (ast.List, ast.Tuple)) else [node.value]
+            if any(isinstance(t, ast.Name) and t.id == "pytestmark" for t in targets) and any(map(_is_slow_mark,
+                                                                                                   values)):
+                module_slow = True
+    top_jax = _jax_imports(ast.Module(body=[n for n in tree.body if isinstance(n, (ast.Import, ast.ImportFrom))],
+                                      type_ignores=[]))
+    functions = {n.name: n for n in tree.body if isinstance(n, (ast.FunctionDef, ast.AsyncFunctionDef))}
+
+    def refs(fn) -> set:
+        """The module names that `fn` reads, and the fixtures it takes if it
+        is a test or a fixture (a helper's parameters are its own)."""
+        own = set(_args(fn)) | {n.id for n in ast.walk(fn) if isinstance(n, ast.Name)
+                                and isinstance(n.ctx, ast.Store)}
+        read = {n.id for n in ast.walk(fn) if isinstance(n, ast.Name) and isinstance(n.ctx, ast.Load)} - own
+        takes = fn.name.startswith("test") or any(map(_is_fixture, fn.decorator_list))
+        return read | (set(_args(fn)) if takes else set())
+
+    def direct(fn) -> bool:
+        if _jax_imports(fn) or refs(fn) & top_jax:
+            return True
+        return any(a == "jax" or a.startswith("jax_") for a in _args(fn) if a not in functions)
+
+    reach = {name for name, fn in functions.items() if direct(fn)}
+    grew = True
+    while grew:
+        grown = {name for name, fn in functions.items() if name not in reach and refs(fn) & reach}
+        reach |= grown
+        grew = bool(grown)
+    tests = {}
+    for node in tree.body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)) and node.name.startswith("test"):
+            if module_slow or any(map(_is_slow_mark, node.decorator_list)):
+                tests[f"{rel}::{node.name}"] = node.name in reach
+        elif isinstance(node, ast.ClassDef) and node.name.startswith("Test"):
+            class_slow = module_slow or any(map(_is_slow_mark, node.decorator_list))
+            for fn in node.body:
+                if (isinstance(fn, (ast.FunctionDef, ast.AsyncFunctionDef)) and fn.name.startswith("test")
+                        and (class_slow or any(map(_is_slow_mark, fn.decorator_list)))):
+                    tests[f"{rel}::{node.name}::{fn.name}"] = direct(fn) or bool(refs(fn) & reach)
+    return tests
+
+
+def _slow_test_phases(source: str) -> tuple:
+    """chip_smoke.py's `SLOW_TEST_PHASES` ({test id: phase name}, None if it
+    has none) and the names of its module-level functions."""
+    mapping, functions = None, set()
+    for node in ast.parse(source).body:
+        if isinstance(node, ast.Assign) and any(isinstance(t, ast.Name) and t.id == "SLOW_TEST_PHASES"
+                                                for t in node.targets):
+            mapping = ast.literal_eval(node.value)
+        elif isinstance(node, ast.FunctionDef):
+            functions.add(node.name)
+    return mapping, functions
+
+
+def _unaccounted_slow_marks(tests: dict, smoke_source: str) -> list:
+    """What fails the guard, for {"tests/<file>": source} and chip_smoke.py's
+    source: a slow test that the mapping lacks, a slow test that reaches JAX
+    or the JAX package (the card's machine has neither, so such a test stays
+    in the CPU run), a phase that is not a `phase_*` function of
+    chip_smoke.py, an entry that is no slow test."""
+    mapping, functions = _slow_test_phases(smoke_source)
+    if mapping is None:
+        return ["chip_smoke.py has no SLOW_TEST_PHASES"]
+    slow = {}
+    for rel, source in sorted(tests.items()):
+        slow.update(_slow_tests(source, rel))
+    problems = []
+    for test_id, reaches_jax in slow.items():
+        if test_id not in mapping:
+            problems.append(f"{test_id} is marked slow, and SLOW_TEST_PHASES has no phase for it")
+        if reaches_jax:
+            problems.append(f"{test_id} is marked slow and reaches JAX or the JAX package: it stays in the CPU run")
+    for test_id, phase in sorted(mapping.items()):
+        if not (phase.startswith("phase_") and phase in functions):
+            problems.append(f"{test_id}: chip_smoke.py has no function {phase!r}")
+        if test_id not in slow:
+            problems.append(f"{test_id} is in SLOW_TEST_PHASES and is no slow port test")
+    return problems
+
+
+@pytest.mark.parametrize("source,slow", [
+    ("import pytest\npytestmark = pytest.mark.slow\ndef test_a():\n  pass\ndef helper():\n  pass", {"test_a": False}),
+    ("import pytest\npytestmark = [pytest.mark.cuda, pytest.mark.slow]\ndef test_a():\n  pass", {"test_a": False}),
+    ("import pytest\n@pytest.mark.slow\ndef test_a():\n  pass\ndef test_b():\n  pass", {"test_a": False}),
+    ("import pytest\n@pytest.mark.slow(reason='x')\n@pytest.mark.parametrize('a', [1])\ndef test_a(a):\n  pass",
+     {"test_a": False}),
+    ("from pytest import mark\n@mark.slow\nclass TestA:\n  def test_a(self):\n    pass", {"TestA::test_a": False}),
+    ("import pytest\npytestmark = pytest.mark.cuda\n@pytest.mark.skipif(True, reason='x')\ndef test_a():\n  pass",
+     {}),
+    ("import pytest\nclass TestA:\n  @pytest.mark.slow\n  def test_a(self):\n    pass\n  def test_b(self):\n"
+     "    pass", {"TestA::test_a": False}),
+    ("import pytest\n@pytest.mark.slow\ndef test_a(jax_init):\n  pass", {"test_a": True}),
+    ("import pytest\n@pytest.mark.slow\ndef test_a():\n  import jax.numpy as jnp", {"test_a": True}),
+    ("import pytest\nfrom object_detection_torch2_tpu.ops import nms\n@pytest.mark.slow\ndef test_a():\n  nms.x()",
+     {"test_a": True}),
+    ("import pytest\nimport optax\n@pytest.fixture\ndef ref():\n  return optax.sgd(1)\n@pytest.fixture\n"
+     "def run(ref):\n  return ref\n@pytest.mark.slow\ndef test_a(run):\n  pass", {"test_a": True}),
+    ("import pytest\ndef _ref():\n  from object_detection_torch2_tpu.models.ssd import SSD\n@pytest.mark.slow\n"
+     "def test_a():\n  _ref()", {"test_a": True}),
+    ("import pytest\nfrom object_detection_torch2_tpu.utils.testing import fingerprint_tree\n"
+     "from object_detection_torch2_tpu_torch.models.convert import jax_tree\n@pytest.fixture\ndef jax_like():\n"
+     "  return 1\n@pytest.mark.slow\ndef test_a(jax_like):\n  fingerprint_tree(jax_tree({}))", {"test_a": False}),
+    ("import pytest\n@pytest.fixture\ndef ref(jax_init):\n  return jax_init\ndef _check(ref):\n  return ref\n"
+     "@pytest.mark.slow\ndef test_a():\n  _check(1)", {"test_a": False}),
+], ids=["module", "module-list", "decorator", "called-decorator", "from-import-class", "other-marks", "method",
+        "jax-fixture", "jax-import-in-test", "jax-package-module", "jax-through-fixtures", "jax-through-helper",
+        "numpy-helpers-and-port-names", "helper-parameter-named-as-a-fixture"])
+def test_slow_mark_scan(source, slow):
+    """The scan finds each test marked slow, by module `pytestmark` (alone or
+    in a list) or by a decorator (called or not, on a function, method or
+    class), and no other; and whether it reaches JAX or the JAX package: a
+    `jax_*` fixture from outside the module, an import in its body, a name
+    the module imports from them, or a module fixture or helper that does,
+    but not the JAX package's numpy-only utils/testing.py or the port's own
+    `jax_*` names."""
+    rel = "tests/test_torch_x.py"
+    assert _slow_tests(source, rel) == {f"{rel}::{k}": v for k, v in slow.items()}
+
+
+SLOW_SMOKE = "SLOW_TEST_PHASES = {'tests/test_torch_a.py::test_a': 'phase_a'}\ndef phase_a(card):\n  pass\n"
+SLOW_FILE = "import pytest\n@pytest.mark.slow\ndef test_a():\n  pass\n"
+
+
+@pytest.mark.parametrize("tests,smoke,fails", [
+    ({"tests/test_torch_a.py": SLOW_FILE, "tests/test_torch_b.py": "def test_b():\n  pass\n"}, SLOW_SMOKE, []),
+    ({"tests/test_torch_a.py": SLOW_FILE, "tests/test_torch_b.py": SLOW_FILE}, SLOW_SMOKE,
+     ["tests/test_torch_b.py::test_a is marked slow"]),
+    ({"tests/test_torch_a.py": SLOW_FILE + "@pytest.mark.slow\ndef test_c():\n  pass\n"}, SLOW_SMOKE,
+     ["tests/test_torch_a.py::test_c is marked slow"]),
+    ({"tests/test_torch_a.py": SLOW_FILE}, SLOW_SMOKE.replace("def phase_a", "def other"), ["no function 'phase_a'"]),
+    ({"tests/test_torch_a.py": SLOW_FILE}, SLOW_SMOKE.replace("'phase_a'", "'other'").replace("def phase_a", "def other"),
+     ["no function 'other'"]),
+    ({"tests/test_torch_a.py": "def test_a():\n  pass\n"}, SLOW_SMOKE, ["is no slow port test"]),
+    ({"tests/test_torch_a.py": SLOW_FILE}, "def phase_a(card):\n  pass\n", ["has no SLOW_TEST_PHASES"]),
+    ({"tests/test_torch_a.py": SLOW_FILE.replace("():", "(jax_init):")}, SLOW_SMOKE, ["reaches JAX"]),
+], ids=["accounted", "unlisted-mark", "unlisted-test", "missing-phase", "not-a-phase", "stale-entry", "no-mapping",
+        "reaches-jax"])
+def test_slow_mark_guard_cases(tests, smoke, fails):
+    """The guard passes a slow test listed with an existing phase, and fails
+    an unlisted test (in a listed file or another), a missing or misnamed
+    phase, a stale entry, a missing mapping and a listed test that reaches
+    JAX."""
+    problems = _unaccounted_slow_marks(tests, smoke)
+    assert len(problems) == len(fails) and all(f in p for f, p in zip(fails, problems)), problems
+
+
+def test_every_slow_mark_has_its_chip_smoke_phase():
+    """Each port test marked slow (left out of the default CPU run) is listed
+    by its id in chip_smoke.py's SLOW_TEST_PHASES with the `phase_*` function
+    that holds its checks on the card, that function exists, and no such
+    test reaches JAX or the JAX package. Parsed, not imported."""
+    tests = {f"tests/{p.name}": p.read_text() for p in sorted(Path(__file__).parent.glob("test_torch_*.py"))}
+    assert len(tests) > 20
+    problems = _unaccounted_slow_marks(tests, (ROOT / "chip_smoke.py").read_text())
+    assert not problems, "; ".join(problems)

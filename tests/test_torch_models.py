@@ -179,3 +179,27 @@ def test_jax_init_weights_forward_matches_jax_at_small_size():
     with torch.inference_mode():
         got = model.eval()(torch.from_numpy(x), use_batch_stats=False).numpy()
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+
+
+def test_head_gradients_reach_their_convs_aligned(monkeypatch):
+    """With one image, the gradient that reaches each convolution's output
+    (each detector head's included: a slice of the concatenated outputs'
+    gradient) starts on a 16-byte boundary. On the card, cuDNN's backward
+    read a head's unaligned one-image slice at a misaligned address (a CUDA
+    error in the first step of any training at one image a process)."""
+    starts = []
+    conv2d = torch.nn.functional.conv2d
+
+    def recording(*args, **kwargs):
+        y = conv2d(*args, **kwargs)
+        if y.requires_grad:
+            y.register_hook(lambda g: starts.append(g.data_ptr() % 16))
+        return y
+
+    monkeypatch.setattr(torch.nn.functional, "conv2d", recording)
+    model = SSD(num_classes=21, seed=0).train()
+    x = torch.from_numpy(np.random.default_rng(0).uniform(0, 1, (1, 264, 264, 3)).astype(np.float32))
+    out = model(x)
+    weight = torch.from_numpy(np.random.default_rng(1).standard_normal(out.shape).astype(np.float32))
+    (out * weight).sum().backward()
+    assert len(starts) == 13 + 10 + 6 and not any(starts), starts  # trunk, extras, heads

@@ -177,6 +177,64 @@ def test_non_maximum_suppression_ties_golden(goldens):
         np.testing.assert_allclose(rows[np.lexsort(rows.T)], rows_ref[np.lexsort(rows_ref.T)], atol=1e-6)
 
 
+def _sweep_case(name):
+    """(sorted boxes, sorted valid) of one case of the sweep's oracle test."""
+    rng = np.random.default_rng(sorted(SWEEP_CASES).index(name))
+    n, p = SWEEP_CASES[name]
+    if name.startswith("anchors"):  # the SSD's candidates: its 8732 default boxes, jittered
+        from object_detection_torch2_tpu_torch.core.anchors import default_boxes
+
+        df = np.asarray(default_boxes(), np.float32)[:p]
+        boxes = df[None] * rng.uniform(0.9, 1.1, (n, p, 4)).astype(np.float32)
+        scores = rng.uniform(-0.5, 1.0, (n, p)).astype(np.float32)
+    elif name.startswith("tied"):
+        boxes, scores = _tied(rng, n, p)
+    else:
+        boxes = _clustered(rng, n, p, spread=0.01 if name.startswith("dense") else 0.04)
+        scores = rng.uniform(-0.2, 1.0, (n, p)).astype(np.float32)
+    if name.endswith("padded"):  # all-zero rows, as a ragged batch's pad
+        boxes[:, p // 2:] = 0.0
+    if name.endswith("invalid"):
+        scores[:] = -1.0
+    return _sorted(boxes, scores)
+
+
+SWEEP_CASES = {"anchors": (2, 8732), "anchors-padded": (1, 8732), "clustered-1": (1, 1), "clustered-129": (3, 129),
+               "dense": (2, 1000), "dense-padded": (2, 700), "tied": (2, 515), "clustered-invalid": (2, 300)}
+
+
+def _dense_keep_sorted(sorted_boxes, sorted_valid, iou_thresh):
+    """The oracle: the blocked sweep with each block's IoUs against every
+    later candidate, the kept pivots' rows masked in afterwards."""
+    p = sorted_boxes.shape[1]
+    keep = sorted_valid.clone()
+    for start in range(0, p, nms.BLOCK):
+        stop = min(start + nms.BLOCK, p)
+        blk = sorted_boxes[:, start:stop]
+        kept_blk = nms._block_self_suppress(keep[:, start:stop], nms.pairwise_iou(blk, blk), iou_thresh)
+        keep[:, start:stop] = kept_blk
+        if stop < p:
+            hit = nms.pairwise_iou(blk, sorted_boxes[:, stop:]) > iou_thresh
+            keep[:, stop:] &= ~(hit & kept_blk[:, :, None]).any(dim=1)
+    return keep
+
+
+@pytest.mark.parametrize("thresh", [0.0, 0.5, 1.0])
+@pytest.mark.parametrize("name", sorted(SWEEP_CASES))
+def test_pivot_sweep_equals_the_blocked_sweep(name, thresh):
+    """`_blocked_keep_sorted`, the plain sweep (the custom op's on a CPU
+    tensor), which takes the cross IoUs of kept pivots against live
+    candidates alone, gives the dense sweep's keep mask bit for bit: the
+    SSD's jittered default boxes at full count, dense clusters, exact ties
+    and duplicates, zero-size pad rows, no valid candidate, one candidate and
+    a ragged last block; at IoU thresholds 0, 0.5 and 1."""
+    sb, sv = (torch.from_numpy(a) for a in _sweep_case(name))
+    want = _dense_keep_sorted(sb, sv, thresh)
+    got = nms._blocked_keep_sorted(sb, sv, thresh)
+    assert got.dtype == torch.bool and torch.equal(got, want), int((got != want).sum())
+    assert torch.equal(nms_cuda.keep_sorted(sb, sv, thresh), want)
+
+
 def test_keep_sorted_refuses_other_devices():
     boxes = torch.zeros((1, 4, 4), device="meta")
     with pytest.raises(ValueError):

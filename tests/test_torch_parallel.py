@@ -4,9 +4,9 @@ mesh (`Trainer(mesh=make_mesh(2))` on the virtual CPU devices of
 tests/conftest.py), and a mesh of one rank against no mesh, bit for bit.
 
 One 2-rank cluster serves the module: `_rank_checks` runs every check on
-both ranks (BatchNorm, the SSD's gradients and SGD steps, an augmented step,
-an int8-trunk step, the AP merge, the world-1 comparisons) and returns the
-results, which the tests compare with the same work done here in one
+both ranks (BatchNorm, the SSD's gradients and SGD steps from the JAX
+package's init, the predictor, the AP merge, the world-1 comparisons) and
+returns the results, which the tests compare with the same work done here in one
 process. The cluster starts before anything else of the module, so it runs
 while this process computes the JAX package's references and its own. The
 ranks meet through a FileStore; the cluster has a hard timeout.
@@ -17,7 +17,14 @@ Tolerances are the JAX package's own for its 1-vs-8-device test
 atol 1e-8 between the port's runs; parameters rtol 1e-4 / atol 4e-6; batch
 statistics rtol 1e-3 / atol 1e-5. The trajectories use SGD: Adam turns
 reduction-order ulps into +-lr steps (tests/test_parallel.py:61-69); Adam is
-held only where a mesh of one rank must equal no mesh bit for bit."""
+held only where a mesh of one rank must equal no mesh bit for bit.
+
+The full SSD's steps on 2 ranks against 1 rank that the JAX package does not
+take part in (the float64 run, an augmented step, an int8-trunk step) hold
+the port against itself: their tests are marked `slow` (`python -m pytest -m
+slow tests/test_torch_parallel.py` runs them) and share a 2-rank cluster of
+their own, and chip_smoke.py's `phase_parallel_ranks` asserts their checks at
+the same pins on the card."""
 
 import concurrent.futures
 from pathlib import Path
@@ -268,8 +275,7 @@ def _rank_checks(mesh, handoff: str) -> dict:
 
     out = {"bn": {case: _bn_run(mesh, mask) for case, mask in BN_MASKS.items()},
            "ap": {case: _ap_run(mesh, split) for case, split in AP_SPLITS.items()},
-           "predict": _predict_run(mesh), "stack": _stack_run(mesh), "ssd64": _ssd_run(mesh, dtype=torch.float64),
-           "aug": _aug_run(mesh), "int8": _int8_run(mesh)}
+           "predict": _predict_run(mesh), "stack": _stack_run(mesh)}
     # models that differ between the ranks are refused
     probe = torch.nn.Linear(3, 2)
     torch.nn.init.constant_(probe.weight, float(mesh.rank))
@@ -283,6 +289,22 @@ def _rank_checks(mesh, handoff: str) -> dict:
         out["world1"] = _world1_checks(mesh_lib.make_mesh("cpu", group=single))
     out["ssd"] = _ssd_run(mesh, _wait_for(Path(handoff)), batch=_fixture_batch)
     return out
+
+
+def _slow_rank_checks(mesh) -> dict:
+    """One rank of the slow tests' cluster: the float64 SSD's gradients and
+    steps, an augmented step, an int8-trunk step."""
+    return {"ssd64": _ssd_run(mesh, dtype=torch.float64), "aug": _aug_run(mesh), "int8": _int8_run(mesh)}
+
+
+def _assert_ranks_bit_identical(ranks, run: str):
+    """After the steps both ranks hold the same parameters and running
+    statistics, bit for bit, and returned the same (global) losses."""
+    a, b = ranks[0][run], ranks[1][run]
+    assert a["losses"] == b["losses"], run
+    for part in ("params", "stats"):
+        for k in a[part]:
+            assert torch.equal(a[part][k], b[part][k]), (run, part, k)
 
 
 # ----------------------------------------------------------------- fixtures
@@ -331,6 +353,12 @@ def jax_init(cluster):
 @pytest.fixture(scope="module")
 def ranks(cluster, jax_init):
     return cluster[0].result(timeout=CLUSTER_TIMEOUT)
+
+
+@pytest.fixture(scope="module")
+def slow_ranks():
+    """The slow tests' 2-rank cluster: `_slow_rank_checks` on each rank."""
+    return mesh_lib.launch(_slow_rank_checks, WORLD, device_type="cpu", timeout=CLUSTER_TIMEOUT)
 
 
 @pytest.fixture(scope="module")
@@ -433,7 +461,8 @@ def test_full_ssd_two_ranks_match_the_jax_mesh_and_one_rank(cluster, jax_init, j
         assert (np.abs(got - want) <= np.abs(single - want) + 1e-5 + 1e-3 * np.abs(single)).all(), name
 
 
-def test_full_ssd_float64_two_ranks_equal_one_rank(cluster, jax_init):
+@pytest.mark.slow
+def test_full_ssd_float64_two_ranks_equal_one_rank(slow_ranks):
     """The full SSD at imsize 264, global batch 4 (the JAX package's DP test
     data), SGD, computing in float64 (`SSD(dtype=torch.float64)`): 2 ranks
     against 1 rank over the whole batch. The gradients through the synced
@@ -450,9 +479,11 @@ def test_full_ssd_float64_two_ranks_equal_one_rank(cluster, jax_init):
     bit-equal only because XLA partitions the reduction identically. In
     float64 that amplified noise stays below 1e-8, so the gradients' semantics
     (the moments' all-reduce backward and the one mean of the gradients) are
-    held exactly."""
+    held exactly. The two ranks return the same losses and hold the same
+    parameters and statistics, bit for bit."""
+    _assert_ranks_bit_identical(slow_ranks, "ssd64")
     one = _ssd_run(None, dtype=torch.float64)
-    two = cluster[0].result(timeout=CLUSTER_TIMEOUT)[0]["ssd64"]
+    two = slow_ranks[0]["ssd64"]
     _close(two["grads"], one["grads"], rtol=1e-6, atol=1e-8)
     np.testing.assert_allclose(two["losses"], one["losses"], rtol=1e-5)
     _close(two["params"], one["params"], rtol=1e-4, atol=4e-6)
@@ -461,13 +492,9 @@ def test_full_ssd_float64_two_ranks_equal_one_rank(cluster, jax_init):
 
 def test_ranks_hold_bit_identical_state(ranks):
     """After the steps every rank holds the same parameters and running
-    statistics, bit for bit, and returned the same (global) losses."""
-    for run in ("ssd64", "ssd", "aug", "int8"):
-        a, b = ranks[0][run], ranks[1][run]
-        assert a["losses"] == b["losses"], run
-        for part in ("params", "stats"):
-            for k in a[part]:
-                assert torch.equal(a[part][k], b[part][k]), (run, part, k)
+    statistics, bit for bit, and returned the same (global) losses (the slow
+    tests' cluster: each of its tests checks its own run)."""
+    _assert_ranks_bit_identical(ranks, "ssd")
 
 
 @pytest.mark.parametrize("case", list(BN_MASKS))
@@ -498,22 +525,26 @@ def test_world_one_mesh_is_bit_equal_to_no_mesh(ranks, check):
     assert ranks[0]["world1"][check] == []
 
 
-def test_augmented_step_two_ranks_equal_one_rank(ranks):
+@pytest.mark.slow
+def test_augmented_step_two_ranks_equal_one_rank(slow_ranks):
     """An augmented step: each rank draws for the global batch and keeps its
     rows, so 2 ranks x 2 images take the step 1 rank x 4 images takes."""
+    _assert_ranks_bit_identical(slow_ranks, "aug")
     one = _aug_run(None)
-    two = ranks[0]["aug"]
+    two = slow_ranks[0]["aug"]
     np.testing.assert_allclose(two["losses"], one["losses"], rtol=1e-5)
     _close(two["params"], one["params"], rtol=1e-4, atol=4e-6)
     _close(two["stats"], one["stats"], rtol=1e-3, atol=1e-5)
 
 
-def test_trunk_int8_step_two_ranks_equal_one_rank(ranks):
+@pytest.mark.slow
+def test_trunk_int8_step_two_ranks_equal_one_rank(slow_ranks):
     """One --trunk_int8 step in running-statistics mode (as the JAX
     package's test: batch statistics' reduction order flips int8 roundings):
     the heads' gradient all-reduce composes with the int8 trunk."""
+    _assert_ranks_bit_identical(slow_ranks, "int8")
     one = _int8_run(None)
-    two = ranks[0]["int8"]
+    two = slow_ranks[0]["int8"]
     np.testing.assert_allclose(two["losses"], one["losses"], rtol=1e-5)
     _close(two["params"], one["params"], rtol=1e-4, atol=4e-6)
 

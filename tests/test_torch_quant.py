@@ -15,6 +15,7 @@ import numpy as np
 import optax
 import pytest
 import torch
+import torch.nn.functional as F
 
 from object_detection_torch2_tpu.core.anchors import default_boxes as jax_default_boxes
 from object_detection_torch2_tpu.core.anchors import feature_grids_for as jax_grids
@@ -30,7 +31,7 @@ from object_detection_torch2_tpu_torch.models.convert import (
     quant_scales_from_jax_variables,
 )
 from object_detection_torch2_tpu_torch.models.ssd import SSD
-from object_detection_torch2_tpu_torch.ops.int8_conv import int8_conv, int8_conv_plain, pack_weight
+from object_detection_torch2_tpu_torch.ops.int8_conv import chunk_channels, int8_conv, int8_conv_plain, pack_weight
 from object_detection_torch2_tpu_torch.train.trainer import Trainer
 
 torch.set_num_threads(1)
@@ -192,6 +193,62 @@ def test_int8_conv_plain_exact(kind):
         got = fn(_nchw(x8), wpk, None, None, stride, pad, None)
         assert got.dtype == torch.int32 and got.is_contiguous(memory_format=torch.channels_last)
         np.testing.assert_array_equal(got.permute(0, 2, 3, 1).numpy(), want)
+
+
+def _float64_int8_conv(x8: torch.Tensor, w8: torch.Tensor, stride: int, pad: int) -> torch.Tensor:
+    """The plain int8 conv's float64 form (its form on the card): one float64
+    convolution of the int8 values, exact below 2^53, cast to int32. The
+    oracle of the chunked float32 form the CPU runs."""
+    return F.conv2d(x8.to(torch.float64), w8.permute(0, 3, 1, 2).to(torch.float64), stride=stride,
+                    padding=pad).to(torch.int32)
+
+
+def _quantized_layer_shapes(imsize: int) -> list:
+    """(layer, Cin, H = W, Cout, kernel, stride, pad) of every quantizable
+    layer of SSD300 at `imsize` (quant.FULL_QUANT_LAYERS: conv_1_2, blocks
+    2-5, extras 6-11, the six heads)."""
+    rows, h, out_hw = [], imsize, {}
+    for suffix, cin, cout, k, stride, pad, pool in ssd_mod.LAYER_SPECS:
+        if suffix in pq.FULL_QUANT_LAYERS:
+            rows.append((suffix, cin, h, cout, k, stride, pad))
+        h = (h + 2 * pad - k) // stride + 1
+        out_hw[suffix] = (h, cout)
+        if pool is not None:
+            h = (h + (2 if pool == "M_P" else 0)) // 2
+    for suffix, anchors in ssd_mod.DETECTOR_TAPS:
+        hw, cin = out_hw[suffix]
+        rows.append((f"det_{suffix}", cin, hw, anchors * 25, 3, 1, 1))
+    return rows
+
+
+LAYER_SHAPES = {f"{imsize}-{row[0]}": row for imsize in (FULL_IMSIZE, 300) for row in _quantized_layer_shapes(imsize)}
+
+
+@pytest.mark.parametrize("case", list(LAYER_SHAPES))
+def test_chunked_plain_int8_conv_bit_equal_to_float64(case):
+    """On a CPU tensor `int8_conv_plain` sums in float32 over chunks of at
+    most chunk_channels input channels (113 for 3 x 3, 1,024 for 1 x 1): bit
+    for bit the float64 form at every quantizable layer shape of SSD300 at
+    imsize 264 and 300 (batch 1), on the worst operands (all -128 against all
+    -128: every product 2^14, the largest; all +127 against all -127: every
+    product -16,129, odd, so a chunk past 2^24 would round) and on seeded
+    random int8 values."""
+    _, cin, hw, cout, k, stride, pad = LAYER_SHAPES[case]
+    assert (chunk_channels(3, 3), chunk_channels(1, 1)) == (113, 1024)
+    g = torch.Generator().manual_seed(list(LAYER_SHAPES).index(case))
+    x_shape, w_shape = (1, cin, hw, hw), (cout, k, k, cin)
+    operands = {
+        "all -128": (torch.full(x_shape, -128, dtype=torch.int8), torch.full(w_shape, -128, dtype=torch.int8)),
+        "+127 against -127": (torch.full(x_shape, 127, dtype=torch.int8), torch.full(w_shape, -127, dtype=torch.int8)),
+        "random": (torch.randint(-128, 128, x_shape, generator=g, dtype=torch.int8),
+                   torch.randint(-128, 128, w_shape, generator=g, dtype=torch.int8)),
+    }
+    for name, (x8, w8) in operands.items():
+        x8 = x8.contiguous(memory_format=torch.channels_last)
+        got = int8_conv_plain(x8, w8, None, None, stride, pad, None)
+        want = _float64_int8_conv(x8, w8, stride, pad)
+        assert got.dtype == torch.int32 and got.is_contiguous(memory_format=torch.channels_last)
+        assert torch.equal(got, want), f"{case} {name}: {int((got != want).sum())} sums differ"
 
 
 @pytest.mark.parametrize("context", ["serving", "trainer"])

@@ -89,16 +89,16 @@ def test_resolve_resume_matches_jax(params, base_lr, orbax, explicit, capsys):
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    """A: 2 epochs with the full state (train augment on, validation
+    """A: 1 epoch with the full state (train augment on, validation
     un-augmented so that the whole state is comparable), then 1 more resumed
-    from it; B: 3 epochs straight in a fresh directory; C: 1 epoch at
-    --steps_per_dispatch 2."""
+    from it across the epoch boundary; B: 2 epochs straight in a fresh
+    directory; C: 1 epoch at --steps_per_dispatch 2."""
     a, b, c = (tmp_path_factory.mktemp(n) for n in "abc")
     flags = ["--val_aug", "none"]
-    first = _run(a, "--epochs", "2", *flags)
-    params_after_2 = json.loads((a / "result" / "detection" / "params.json").read_text())
+    first = _run(a, "--epochs", "1", *flags)
     resumed = _run(a, "--epochs", "1", *flags)
-    straight = _run(b, "--epochs", "3", *flags)
+    straight = _run(b, "--epochs", "2", *flags)
+    params_after_2 = json.loads((b / "result" / "detection" / "params.json").read_text())
     dispatch2 = _run(c, "--epochs", "1", "--steps_per_dispatch", "2", *flags)
     return {"a": a, "b": b, "c": c, "first": first, "params_after_2": params_after_2, "resumed": resumed,
             "straight": straight, "dispatch2": dispatch2}
@@ -161,17 +161,18 @@ def test_artifacts_of_a_run(runs):
     """params.json and phase_times.json of the 2-epoch run; weights.msgpack
     (loaded by the JAX package: the state of the last improved epoch, float32
     leaves) and the full states after the resumed epoch."""
-    a, first = runs["a"], runs["first"]
+    a, first, straight = runs["a"], runs["first"], runs["straight"]
     params = runs["params_after_2"]
-    epoch_means = [float(l.mean()) for l in first["losses"]]
-    assert [len(l) for l in first["losses"]] == [2, 2]
+    epoch_means = [float(l.mean()) for l in straight["losses"]]
+    assert [len(l) for l in straight["losses"]] == [2, 2]
     assert params["min_loss"] == pytest.approx(min(epoch_means), rel=0, abs=0)
     best = int(np.argmin(epoch_means)) + 1
     assert params["last_epoch"] == best and params["base_lr"] == 0.001 and params["steps_per_epoch"] == 2
     assert params["lr"] == 0.001 * 0.95 ** (best - 1)
+    assert [r["epoch"] for r in straight["phase_times"]] == [1, 2]
 
-    # the resumed third epoch has since written both files again
-    assert sorted(int(p.name) for p in (a / "state").iterdir()) == [2, 4, 6]
+    # the resumed second epoch has since written both files again
+    assert sorted(int(p.name) for p in (a / "state").iterdir()) == [2, 4]
     last = json.loads((a / "result" / "detection" / "params.json").read_text())["last_epoch"]
     jax_weights = jax_ckpt.load_weights(a / "result" / "detection" / "weights.msgpack")
     want = jax_variables_from_state_dict(_full_state(a, 2 * last)["model"])
@@ -184,19 +185,19 @@ def test_artifacts_of_a_run(runs):
                 np.testing.assert_array_equal(got, v, err_msg=f"{coll}/{layer}/{leaf}")
 
     rows = json.loads((a / "logs" / "phase_times.json").read_text())
-    assert [r["epoch"] for r in rows] == [3]  # the resumed run rewrote it
-    assert [r["epoch"] for r in first["phase_times"]] == [1, 2]
+    assert [r["epoch"] for r in rows] == [2]  # the resumed run rewrote it
+    assert [r["epoch"] for r in first["phase_times"]] == [1]
     assert set(rows[0]) == {"epoch", "train_s", "val_s", "save_s", "total_s", "img_per_s_train_loop",
                             "img_per_s_wall"}
 
 
 def test_event_scalars_per_epoch(runs):
     """loss/train, loss/validation and lr for each epoch, as float32: the
-    straight run's three epochs, its lr decaying per epoch."""
+    straight run's two epochs, its lr decaying per epoch."""
     scalars = read_scalars(runs["b"] / "logs")
     straight = runs["straight"]
     want = []
-    for epoch in range(1, 4):
+    for epoch in range(1, 3):
         want += [("loss/train", np.float32(float(straight["losses"][epoch - 1].mean())), epoch),
                  ("loss/validation", np.float32(straight["val_losses"][epoch - 1]), epoch),
                  ("lr", np.float32(0.001 * 0.95 ** (epoch - 1)), epoch)]
@@ -204,19 +205,19 @@ def test_event_scalars_per_epoch(runs):
 
 
 def test_full_state_resume_is_bit_equal_to_an_uninterrupted_run(runs):
-    """2 epochs + 1 resumed from the full state against 3 straight, with the
-    train augment on: the third epoch's losses, the full states (weights, BN
+    """1 epoch + 1 resumed from the full state against 2 straight, with the
+    train augment on: the second epoch's losses, the full states (weights, BN
     statistics, Adam moments and step) and the weights files bit-equal; the
     resumed epoch's lr continues the decay (the Q7 fix)."""
     resumed, straight = runs["resumed"], runs["straight"]
-    assert torch.equal(resumed["losses"][0], straight["losses"][2])
-    assert resumed["val_losses"] == straight["val_losses"][2:]
-    assert resumed["state"].step == straight["state"].step == 6
-    _assert_trees_equal(_full_state(runs["a"], 6), _full_state(runs["b"], 6))
+    assert torch.equal(resumed["losses"][0], straight["losses"][1])
+    assert resumed["val_losses"] == straight["val_losses"][1:]
+    assert resumed["state"].step == straight["state"].step == 4
+    _assert_trees_equal(_full_state(runs["a"], 4), _full_state(runs["b"], 4))
     assert ((runs["a"] / "result" / "detection" / "weights.msgpack").read_bytes()
             == (runs["b"] / "result" / "detection" / "weights.msgpack").read_bytes())
-    lrs = [v for tag, v, step in read_scalars(runs["a"] / "logs") if tag == "lr" and step == 3]
-    assert lrs == [np.float32(0.001 * 0.95 ** 2)]
+    lrs = [v for tag, v, step in read_scalars(runs["a"] / "logs") if tag == "lr" and step == 2]
+    assert lrs == [np.float32(0.001 * 0.95)]
     assert not torch.equal(straight["losses"][0], straight["losses"][1])
 
 

@@ -7,6 +7,12 @@ The port runs `SSD(conv12_kernel=True)` (on the CPU: the plain conv_1_2) through
 `Trainer` / `TrainState` / `adam_torch`, on the CPU, from the golden's
 manifest-seeded weights and batches. Its fingerprints are taken in the JAX
 layout (models/convert.py `jax_tree`), so the golden's keys apply as they are.
+
+The replay holds the port against the golden alone, so its tests are marked
+`slow` (`python -m pytest -m slow tests/test_torch_trajectory.py` runs them):
+chip_smoke.py's `phase_trajectory` replays the same golden on the card and
+asserts every one of their checks at the same pins. `test_lr_schedule` needs
+no replay and stays in the default run.
 """
 
 import numpy as np
@@ -64,6 +70,7 @@ def _abs_delta(keys_g, fp_g, named):
     return keys, np.abs(fp - fp_g).max(axis=1), fp_g[:, 0]
 
 
+@pytest.mark.slow
 def test_loss_trajectory(trajectory):
     g, losses, *_ = trajectory
     ref = g["losses"]
@@ -72,15 +79,24 @@ def test_loss_trajectory(trajectory):
     assert drift[0] < 1e-4, f"step-0 loss drift {drift[0]:.2e}"
 
 
-def test_lr_schedule(trajectory):
-    g, _, _, state, _ = trajectory
+def test_lr_schedule(goldens):
+    """The golden's learning rates at rtol 1e-12, and `adam_torch` taking its
+    last step at the last epoch's rate. The replayed Trainer's step count is
+    chip_smoke.py `phase_trajectory`'s to check."""
+    g = goldens("train_trajectory")
+    steps = int(g["steps"])
     schedule = exponential_epoch_schedule(float(g["lr"]), float(g["gamma"]), int(g["steps_per_epoch"]))
-    np.testing.assert_allclose([schedule(s) for s in range(int(g["steps"]))], g["lrs"], rtol=1e-12)
-    # the optimizer took its last step at the last epoch's rate
-    assert state.optimizer.steps_taken() == state.step == int(g["steps"])
-    assert state.optimizer.param_groups[0]["lr"] == pytest.approx(g["lrs"][-1], rel=1e-12)
+    np.testing.assert_allclose([schedule(s) for s in range(steps)], g["lrs"], rtol=1e-12)
+    p = torch.nn.Parameter(torch.ones(3))
+    optimizer = adam_torch([p], schedule, weight_decay=float(g["weight_decay"]))
+    for _ in range(steps):
+        p.grad = torch.ones(3)
+        optimizer.step()
+    assert optimizer.steps_taken() == steps
+    assert optimizer.param_groups[0]["lr"] == pytest.approx(g["lrs"][-1], rel=1e-12)
 
 
+@pytest.mark.slow
 def test_step0_gradients(trajectory):
     """Relative to max(golden L2, 1e-4): BN-cancelled conv biases carry only
     float32 noise (tests/test_trajectory.py)."""
@@ -90,6 +106,7 @@ def test_step0_gradients(trajectory):
     assert rel.max() < 5e-3, f"grad fingerprint drift {rel.max():.2e} ({keys[rel.argmax()]})"
 
 
+@pytest.mark.slow
 def test_final_params(trajectory):
     """Per tensor |d fingerprint| <= 5e-3 * L2 + 1e-2."""
     g, _, _, state, _ = trajectory
@@ -99,6 +116,7 @@ def test_final_params(trajectory):
     assert (absd <= budget).all(), f"param drift {absd[worst]:.2e} > {budget[worst]:.2e} ({keys[worst]})"
 
 
+@pytest.mark.slow
 def test_final_batch_stats(trajectory):
     """The frozen trunk's running statistics within 1e-4, the rest within
     0.1 * L2 + 0.1."""
@@ -111,6 +129,7 @@ def test_final_batch_stats(trajectory):
     assert (absd <= budget).all(), f"batch-stats drift {absd[worst]:.2e} > {budget[worst]:.2e} ({keys[worst]})"
 
 
+@pytest.mark.slow
 def test_frozen_trunk_is_bit_unchanged(trajectory):
     """20 steps leave every frozen parameter bit for bit as it was, while
     every running statistic, trunk included, has moved."""
@@ -123,6 +142,7 @@ def test_frozen_trunk_is_bit_unchanged(trajectory):
     assert set(state.optimizer.state) == set(state.trainable.values())
 
 
+@pytest.mark.slow
 def test_eval_forward_after_training(trajectory):
     g, _, _, state, _ = trajectory
     images0, _ = synth_trajectory_batch(0, n=int(g["bs"]))
