@@ -196,7 +196,18 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    starting at 0) come back in its record: conv12_bf16 in every training
    run, NMS in every evaluation, both int8 kernels in the int8 arms; RSS and
    device memory read; no threshold held (the full run's is);
-21. each phase's wall seconds (`phase seconds: {...}`), the kernels line
+21. the port's tests moved off the CPU run (marked slow; `SLOW_TEST_PHASES`
+   names each with its phase), each at its test's size and pins, each
+   reading printed beside its pin: `phase_moved_serving` (the inference
+   CLI's renders, flags, int8 flags and exports, the exported pipeline's
+   reload, metadata and graph, float16 rows and fresh-interpreter load, the
+   evaluation pipeline's stacked batches and the evaluate CLI's flags, on
+   the fixture tree at imsize 264) and `phase_moved_training` (the
+   Trainer's K-step, zero-gradient, uint8 and eval_step equalities with and
+   without augment under cuDNN's deterministic algorithms, the full-int8
+   accuracy at 264, the training CLI's kill-and-resume, --steps_per_dispatch
+   2 and classification purpose); their launches go into the kernels line;
+22. each phase's wall seconds (`phase seconds: {...}`), the kernels line
    (JSON; launches summed over the paths that ran each
    kernel, by path, the data-parallel paths' summed over ranks), then the last line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -244,6 +255,31 @@ SLOW_TEST_PHASES = {
     "tests/test_torch_trajectory.py::test_frozen_trunk_is_bit_unchanged": "phase_trajectory",
     "tests/test_torch_trajectory.py::test_eval_forward_after_training": "phase_trajectory",
     "tests/test_torch_trajectory.py::test_bf16_trajectory_within_budget": "phase_trajectory",
+    "tests/test_torch_inference.py::test_cli_main_renders_the_pipeline_detections": "phase_moved_serving",
+    "tests/test_torch_inference.py::test_cli_flags_render_the_same_pngs": "phase_moved_serving",
+    "tests/test_torch_inference.py::test_cli_unported_flags_raise": "phase_moved_serving",
+    "tests/test_torch_inference.py::test_cli_export_under_a_distributed_world_of_one": "phase_moved_serving",
+    "tests/test_torch_inference.py::test_cli_int8_flags_render_the_int8_model": "phase_moved_serving",
+    "tests/test_torch_serving.py::test_reload_matches_the_live_pipeline": "phase_moved_serving",
+    "tests/test_torch_serving.py::test_metadata_and_graph": "phase_moved_serving",
+    "tests/test_torch_serving.py::test_d2h_half_export_matches_the_live_pipeline": "phase_moved_serving",
+    "tests/test_torch_serving.py::test_load_imports_no_model_code": "phase_moved_serving",
+    "tests/test_torch_serving.py::test_inference_cli_exports_the_pipeline": "phase_moved_serving",
+    "tests/test_torch_evaluate.py::test_eval_pipeline_k_stacked_and_half_scores": "phase_moved_serving",
+    "tests/test_torch_evaluate.py::test_cli_int8_flags_run": "phase_moved_serving",
+    "tests/test_torch_evaluate.py::test_cli_flags_match_the_plain_run": "phase_moved_serving",
+    "tests/test_torch_train.py::test_train_steps_equals_single_steps": "phase_moved_training",
+    "tests/test_torch_train.py::test_zero_gradients_arrive_as_zeros": "phase_moved_training",
+    "tests/test_torch_train.py::test_uint8_and_float_inputs_take_the_same_step": "phase_moved_training",
+    "tests/test_torch_train.py::test_eval_step_updates_running_stats_only": "phase_moved_training",
+    "tests/test_torch_augment.py::test_augmented_train_steps_equal_single_steps": "phase_moved_training",
+    "tests/test_torch_augment.py::test_eval_step_augments_only_when_asked": "phase_moved_training",
+    "tests/test_torch_checkpoint.py::test_resume_after_a_kill_in_a_weights_save": "phase_moved_training",
+    "tests/test_torch_train_cli.py::test_steps_per_dispatch_2_equals_1": "phase_moved_training",
+    "tests/test_torch_train_cli.py::test_classification_purpose_seeds_the_ssd_trunk": "phase_moved_training",
+    "tests/test_torch_quant.py::test_full_int8_tracks_float": "phase_moved_training",
+    "tests/test_torch_vgg.py::test_state_dict_layout_and_heads": "phase_moved_training",
+    "tests/test_torch_vgg.py::test_dropout_draws_from_its_generator": "phase_moved_training",
 }
 GOLDEN = ROOT / "tests" / "goldens" / "ssd_forward_pinned.npz"
 TRAJECTORY = ROOT / "tests" / "goldens" / "train_trajectory.npz"
@@ -2994,6 +3030,21 @@ def phase_serve_artifact(card: str) -> dict:
         meta = inference.main(argv + ["--export_pipeline", str(tmp / "pipe.bin"), "--export_platforms",
                                       "cuda"])["export"]
         export_s = time.perf_counter() - t0
+        # a fresh process serves the artifact while this one serves it and checks the rest
+        code = (
+            "import sys, time\n"
+            f"t_start = {time.time()!r}\n"
+            "from object_detection_torch2_tpu_torch.ops import nms_cuda\n"
+            "from object_detection_torch2_tpu_torch.tools import serve_artifact\n"
+            f"serve_artifact.main(['--artifact', {str(tmp / 'pipe.bin')!r}, '--records_dir', {str(records)!r},\n"
+            f"                     '--out_dir', {str(tmp / 'sub')!r}, '--limit', '{BATCH}'])\n"
+            "bad = sorted(m for m in sys.modules if m.startswith('object_detection_torch2_tpu_torch.models')\n"
+            "             or m.endswith('.infer'))\n"
+            "print('nms launches', nms_cuda.launches, 'model modules', bad, 'seconds', time.time() - t_start)\n"
+            "sys.exit(1 if bad else 0)\n"
+        )
+        sub_proc = subprocess.Popen([sys.executable, "-c", code], cwd=ROOT, stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True)
         out, serve_s, launches, rows = serve_artifact_run(tmp / "pipe.bin", records, tmp / "served")
         if launches["nms_keep_sorted"] != n_batches or out["images"] != N_IMAGES:
             raise AssertionError(f"serve_artifact: {out['images']} images, launches {launches}")
@@ -3015,20 +3066,12 @@ def phase_serve_artifact(card: str) -> dict:
               f"{launches['nms_keep_sorted']}, every PNG pixel-equal to cli.inference's, detections.json "
               f"({len(rows)} rows) equal to Predictor's ({card})")
 
-        code = (
-            "import sys\n"
-            "from object_detection_torch2_tpu_torch.ops import nms_cuda\n"
-            "from object_detection_torch2_tpu_torch.tools import serve_artifact\n"
-            f"serve_artifact.main(['--artifact', {str(tmp / 'pipe.bin')!r}, '--records_dir', {str(records)!r},\n"
-            f"                     '--out_dir', {str(tmp / 'sub')!r}, '--limit', '{BATCH}'])\n"
-            "bad = sorted(m for m in sys.modules if m.startswith('object_detection_torch2_tpu_torch.models')\n"
-            "             or m.endswith('.infer'))\n"
-            "print('nms launches', nms_cuda.launches, 'model modules', bad)\n"
-            "sys.exit(1 if bad else 0)\n"
-        )
-        t0 = time.perf_counter()
-        proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=600)
-        sub_s = time.perf_counter() - t0
+        try:
+            sub_out, sub_err = sub_proc.communicate(timeout=600)
+        finally:
+            sub_proc.kill()
+        proc = subprocess.CompletedProcess(sub_proc.args, sub_proc.returncode, sub_out, sub_err)
+        sub_s = float(proc.stdout.rsplit("seconds ", 1)[1].split()[0]) if proc.returncode == 0 else None
         sub_rows = json.loads((tmp / "sub" / "detections.json").read_text()) if proc.returncode == 0 else None
         if proc.returncode != 0 or sub_rows != [r for r in rows if r[0] < BATCH]:
             raise AssertionError(f"serve_artifact in a fresh process: rc {proc.returncode}\n{proc.stdout[-2000:]}"
@@ -3126,6 +3169,748 @@ def phase_voc_scale(card: str) -> dict:
     return {"rc": rc, "seconds": seconds, "maps": maps, "stages": stages, "launches": record["kernel_launches"],
             "train": {k: tr[k] for k in ("killed_after_epoch", "resume_first_epoch", "run1", "run2",
                                          "run1_lines_after_last_epoch", "epoch_phases_s")}}
+
+
+# The fixture tree and image size of the port's tests that moved off the CPU
+# run (marked slow); the CLIs run on the card (no --device).
+FIXTURE = ROOT / "tests" / "fixtures" / "voc" / "VOCtest"
+MOVED_IMSIZE = 264
+
+
+class Readings(list):
+    """The moved checks' (test id, reading, pin, perf_counter when done)."""
+
+    def append(self, item):
+        super().append((*item, time.perf_counter()))
+
+
+def print_readings(readings: list, t0: float):
+    """Each moved check's reading beside its pin, with its seconds."""
+    for test, reading, pin, t in readings:
+        print(f"  {test}: {reading} (pin: {pin}; {t - t0:.1f} s)")
+        t0 = t
+
+
+def moved_pngs(images_u8, batch: int, d2h_half: bool = False, model=None) -> list:
+    """tests/test_torch_inference.py's `_expected_pngs` on the card: the
+    pipeline's render of each image (the seeded SSD by default), the CLI's
+    padding."""
+    from object_detection_torch2_tpu_torch.data.labelmap import LabelMap
+    from object_detection_torch2_tpu_torch.infer import build_detection_pipeline, unpack_detections
+    from object_detection_torch2_tpu_torch.models.ssd import SSD
+    from object_detection_torch2_tpu_torch.utils.render import render_detections_compact
+
+    model = SSD(num_classes=21, seed=0) if model is None else model
+    run = build_detection_pipeline(model, True, MOVED_IMSIZE, device=DEVICE, d2h_half=d2h_half)
+    labelmap, out = LabelMap("PascalVOC"), []
+    for start in range(0, len(images_u8), batch):
+        chunk = images_u8[start:start + batch]
+        padded = np.concatenate([chunk, np.repeat(chunk[-1:], batch - len(chunk), 0)])
+        packed, _ = run(padded, len(chunk))
+        boxes, classes, scores = unpack_detections(packed.cpu().numpy())
+        out += [np.asarray(render_detections_compact(chunk[i], boxes[i], classes[i], scores[i], labelmap,
+                                                     MOVED_IMSIZE)) for i in range(len(chunk))]
+    return out
+
+
+def max_abs_diff(*pairs) -> float:
+    """max |a - b| over pairs of tensors or arrays (in float64; 0.0 when
+    every pair is equal)."""
+    worst = 0.0
+    for a, b in pairs:
+        a, b = (t.detach().cpu().double().numpy() if isinstance(t, torch.Tensor) else np.asarray(t, np.float64)
+                for t in (a, b))
+        if a.size:
+            worst = max(worst, float(np.nanmax(np.abs(a - b))) if np.isfinite(a - b).any() else 0.0)
+    return worst
+
+
+def assert_pngs(paths, want, what: str) -> int:
+    """Each PNG pixel-equal to its expected render; returns the largest
+    pixel |d| read (0)."""
+    from object_detection_torch2_tpu_torch.utils.render import require_pil
+
+    Image, _ = require_pil()
+    if [p.name for p in paths] != [f"{i:06}.png" for i in range(1, len(want) + 1)]:
+        raise AssertionError(f"{what}: PNGs {[p.name for p in paths]}")
+    worst = 0
+    for path, w in zip(paths, want, strict=True):
+        got = np.asarray(Image.open(path).convert("RGB"))
+        worst = max(worst, int(np.abs(got.astype(np.int16) - np.asarray(w).astype(np.int16)).max()))
+        if not np.array_equal(got, w):
+            raise AssertionError(f"{what}: {path.name} differs from the pipeline's render (max |d| {worst})")
+    return worst
+
+
+def moved_inference_checks(tmp: Path) -> list:
+    """tests/test_torch_inference.py's CLI tests at their sizes (imsize 264,
+    batch 3, the fixture's 4 test images: a full batch and a ragged one), on
+    the card; the export tests' artifacts are for cuda."""
+    import os
+
+    import torch.distributed as dist
+
+    from object_detection_torch2_tpu_torch.cli import common, inference
+    from object_detection_torch2_tpu_torch.data.records import RecordDataset, pack_voc
+    from object_detection_torch2_tpu_torch.models import quant
+    from object_detection_torch2_tpu_torch.models.ssd import SSD
+    from object_detection_torch2_tpu_torch.serving import load_detection_pipeline
+
+    batch = 3
+    cli = ["--imsize", str(MOVED_IMSIZE), "--batch_size", str(batch), "--dtype", "float32", "--num_workers", "0"]
+    records = tmp / "inference_records"
+    pack_voc([FIXTURE], "test.txt", records, imsize=MOVED_IMSIZE, max_gt=64, log_every=0)
+    images = np.asarray(RecordDataset(records).images)
+    plain = moved_pngs(images, batch)
+    done, worst = Readings(), 0
+    for source, flag in (("voc", ["--data_dirs", str(FIXTURE)]), ("records", ["--records_dir", str(records)])):
+        out = inference.main(cli + flag + ["--result_dir", str(tmp / f"render_{source}")])
+        paths = sorted((tmp / f"render_{source}" / "detection").glob("*.png"))
+        assert [p.name for p in out["paths"]] == [p.name for p in paths]
+        assert len(out["batch_s"]) == len(out["render_s"]) == 2
+        worst = max(worst, assert_pngs(out["paths"], plain, f"cli.inference from {source}"))
+    done.append(("tests/test_torch_inference.py::test_cli_main_renders_the_pipeline_detections",
+                 f"4 PNGs from the tree and 4 from records, numbered 1..4 over 2 batches; max pixel |d| against the "
+                 f"pipeline's render {worst}", "pixel-equal (max |d| 0)"))
+    worst = 0
+    for flags in (["--batches_per_dispatch", "2"], ["--batches_per_dispatch", "3", "--d2h_half"]):
+        out = inference.main(cli + ["--records_dir", str(records), "--result_dir", str(tmp / "_".join(flags))] + flags)
+        want = moved_pngs(images, batch, d2h_half=True) if "--d2h_half" in flags else plain
+        worst = max(worst, assert_pngs(out["paths"], want, f"cli.inference {flags}"))
+    done.append(("tests/test_torch_inference.py::test_cli_flags_render_the_same_pngs",
+                 f"K = 2 against the plain run's PNGs, K = 3 with float16 rows against the render of the float16 "
+                 f"rows: max pixel |d| {worst}", "pixel-equal (max |d| 0)"))
+
+    def export(where: Path, *flags):
+        path = where / "x.bin"
+        out = inference.main(cli + ["--data_dirs", str(FIXTURE), "--result_dir", str(where), "--export_pipeline",
+                                    str(path), "--export_platforms", DEVICE.type, *flags])
+        run, meta = load_detection_pipeline(path, device=DEVICE)
+        assert out["export"] == meta and meta["batch_size"] == batch
+        assert not (where / "detection").exists()
+        x = np.random.default_rng(3).integers(0, 256, (batch, MOVED_IMSIZE, MOVED_IMSIZE, 3), dtype=np.uint8)
+        return run(x, 2)
+
+    one = export(tmp / "export_one")
+    try:
+        inference.main(cli + ["--data_dirs", str(FIXTURE), "--result_dir", str(tmp / "dist"), "--distributed"])
+        raise AssertionError("--distributed without torchrun's environment ran")
+    except RuntimeError as e:
+        assert "torchrun" in str(e), e
+    assert not (tmp / "dist" / "detection").exists()
+    launch = common.launch
+    common.launch = lambda *a, **k: (_ for _ in ()).throw(AssertionError("--export_pipeline launched ranks"))
+    try:
+        two = export(tmp / "export_two", "--num_devices", "2")
+    finally:
+        common.launch = launch
+    assert all(torch.equal(g, w) for g, w in zip(two, one, strict=True))
+    done.append(("tests/test_torch_inference.py::test_cli_unported_flags_raise",
+                 f"--distributed without torchrun's environment raised; --export_pipeline --num_devices 2 launched "
+                 f"nothing, its rows against the one-process artifact's max |d| {max_abs_diff(*zip(two, one))}",
+                 "the RuntimeError; bit-equal rows (max |d| 0)"))
+    env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0", "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(free_port())}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        world1 = export(tmp / "export_world1", "--distributed")
+        assert not dist.is_initialized()
+        try:
+            export(tmp / "export_world1" / "x", "--distributed", "--num_devices", "2")
+            raise AssertionError("--distributed --num_devices 2 ran")
+        except ValueError as e:
+            assert "--num_devices 2 unsupported with --distributed" in str(e), e
+        assert not dist.is_initialized() and not (tmp / "export_world1" / "x").exists()
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    assert all(torch.equal(g, w) for g, w in zip(world1, one, strict=True))
+    done.append(("tests/test_torch_inference.py::test_cli_export_under_a_distributed_world_of_one",
+                 f"rank 0 of a world of one wrote the artifact, rows against the one-process artifact's max |d| "
+                 f"{max_abs_diff(*zip(world1, one))}, the group left; --distributed --num_devices 2 refused",
+                 "bit-equal rows (max |d| 0), the ValueError"))
+    worst = 0
+    for flag in ("--trunk_int8", "--full_int8"):
+        where = tmp / flag.strip("-")
+        name = "quant.json" if flag == "--trunk_int8" else "quant_full.json"
+        if flag == "--trunk_int8":
+            (where / "detection").mkdir(parents=True)
+            quant.save_quant(where / "detection" / name,
+                             {f"amax_{layer}": float(v) for layer, v in
+                              zip(quant.QUANT_LAYERS, np.linspace(2.0, 6.0, len(quant.QUANT_LAYERS)))})
+        out = inference.main(cli + ["--records_dir", str(records), "--result_dir", str(where), flag])
+        model = SSD(num_classes=21, seed=0, trunk_int8=flag == "--trunk_int8", full_int8=flag == "--full_int8")
+        model.set_quant(quant.load_quant(where / "detection" / name))
+        assert len(out["paths"]) == 4
+        worst = max(worst, assert_pngs(out["paths"], moved_pngs(images, batch, model=model), f"cli.inference {flag}"))
+    done.append(("tests/test_torch_inference.py::test_cli_int8_flags_render_the_int8_model",
+                 f"--trunk_int8 and --full_int8, 4 PNGs each against the render of the seeded SSD on that int8 path "
+                 f"and scales: max pixel |d| {worst}", "pixel-equal (max |d| 0)"))
+    return done
+
+
+def moved_serving_checks(tmp: Path) -> list:
+    """tests/test_torch_serving.py's export tests at their sizes (imsize 264,
+    batch 2, 50 detections), the artifacts for cuda and run on the card."""
+    import io
+    import zipfile
+
+    from object_detection_torch2_tpu_torch.cli import inference
+    from object_detection_torch2_tpu_torch.infer import build_detection_pipeline, unpack_detections
+    from object_detection_torch2_tpu_torch.models.ssd import SSD
+    from object_detection_torch2_tpu_torch.serving import export_detection_pipeline, load_detection_pipeline
+
+    batch, platform, done = 2, DEVICE.type, Readings()
+    model = SSD(num_classes=21, seed=0, conv12_kernel=True)
+    path = tmp / "art" / "pipeline.bin"
+    path.parent.mkdir()
+    meta = export_detection_pipeline(model, path, batch_size=batch, use_batch_stats=True, imsize=MOVED_IMSIZE,
+                                     max_detections=50, platforms=(platform,))
+    live = build_detection_pipeline(model, True, MOVED_IMSIZE, max_detections=50, device=DEVICE)
+    images = np.random.default_rng(0).integers(0, 256, (batch, MOVED_IMSIZE, MOVED_IMSIZE, 3), dtype=np.uint8)
+    worst = 0.0
+    # a fresh interpreter runs the artifact while this process makes the other checks
+    np.save(path.parent / "images.npy", images)
+    code = (
+        "import sys, numpy as np, torch\n"
+        f"torch.set_num_threads({torch.get_num_threads()})\n"
+        "from object_detection_torch2_tpu_torch.serving import load_detection_pipeline\n"
+        f"run, meta = load_detection_pipeline({str(path)!r}, device={str(DEVICE)!r})\n"
+        f"packed, n_valid = run(np.load({str(path.parent / 'images.npy')!r}), 2)\n"
+        f"np.save({str(path.parent / 'packed.npy')!r}, packed.cpu().numpy())\n"
+        "print(sorted(m for m in sys.modules if m.startswith('object_detection_torch2_tpu_torch')))\n"
+        "sys.exit(any(m.startswith('object_detection_torch2_tpu_torch.models') or m.endswith('.infer')\n"
+        "             for m in sys.modules))\n"
+    )
+    fresh_proc = subprocess.Popen([sys.executable, "-c", code], cwd=ROOT, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+    run, _ = load_detection_pipeline(path, device=DEVICE)
+    for n_real in (2, 1):
+        packed, n_valid = run(images, n_real)
+        want_packed, want_valid = live(images, n_real)
+        assert packed.dtype == torch.float32 and tuple(packed.shape) == (batch, 50, 6)
+        worst = max(worst, max_abs_diff((packed, want_packed), (n_valid, want_valid)))
+        assert torch.equal(packed, want_packed) and torch.equal(n_valid, want_valid), n_real
+        if n_real == 1:
+            _, classes, scores = unpack_detections(packed.cpu().numpy())
+            assert (scores[1] == 0).all() and (classes[1] == 0).all() and int(n_valid[1]) == 0
+    done.append(("tests/test_torch_serving.py::test_reload_matches_the_live_pipeline",
+                 f"the reloaded program's rows and n_valid against the live pipeline's, n_real 2 and 1 (the pad row "
+                 f"masked): max |d| {worst}", "bit-equal (max |d| 0)"))
+    assert json.loads(Path(str(path) + ".json").read_text()) == meta
+    assert meta["platforms"] == [platform] and meta["batch_size"] == batch and meta["imsize"] == MOVED_IMSIZE
+    assert meta["outputs"]["packed"] == [batch, 50, 6] and meta["bytes"] == path.stat().st_size
+    assert meta["use_batch_stats"] is True and meta["d2h_half"] is False
+    with zipfile.ZipFile(path) as zf:
+        assert zf.namelist() == [f"{platform}.pt2"]
+        program = torch.export.load(io.BytesIO(zf.read(f"{platform}.pt2")))
+    targets = [str(n.target) for gm in program.graph_module.modules() if isinstance(gm, torch.fx.GraphModule)
+               for n in gm.graph.nodes if n.op == "call_function"]
+    counts = {t: targets.count(t) for t in ("odt.conv12.default", "odt.nms_keep_sorted.default", "cond")}
+    assert counts == {"odt.conv12.default": 1, "odt.nms_keep_sorted.default": 3, "cond": 2}, counts
+    try:
+        load_detection_pipeline(path, device="meta")
+        raise AssertionError(f"a {platform} artifact loaded for meta")
+    except ValueError as e:
+        assert platform in str(e), e
+    done.append(("tests/test_torch_serving.py::test_metadata_and_graph",
+                 f"the metadata file equal to the returned metadata, one {platform} program holding {counts}, a "
+                 f"platform it does not hold refused", "conv12 1, NMS 3 (tiers 128, 1024, full), cond 2"))
+    half_model = SSD(num_classes=21, seed=0)
+    half_meta = export_detection_pipeline(half_model, tmp / "half.bin", batch_size=batch, use_batch_stats=True,
+                                          imsize=MOVED_IMSIZE, max_detections=50, platforms=[platform], d2h_half=True)
+    assert half_meta["d2h_half"] is True
+    run, _ = load_detection_pipeline(tmp / "half.bin", device=DEVICE)
+    packed, _ = run(images, batch)
+    half_live = build_detection_pipeline(half_model, True, MOVED_IMSIZE, max_detections=50, device=DEVICE,
+                                         d2h_half=True)
+    # the float32 rows of the same model: on the card its conv_1_2 runs on
+    # cuDNN, the exported fixture's on the conv12 kernel (on the CPU both are
+    # the one plain convolution)
+    f32_live = build_detection_pipeline(half_model, True, MOVED_IMSIZE, max_detections=50, device=DEVICE)
+    rows_half, rows_f32 = half_live(images, batch)[0], f32_live(images, batch)[0].to(torch.float16)
+    assert packed.dtype == torch.float16 and torch.equal(packed, rows_half)
+    assert torch.equal(packed, rows_f32)
+    done.append(("tests/test_torch_serving.py::test_d2h_half_export_matches_the_live_pipeline",
+                 f"float16 rows against the live d2h_half pipeline's and the same model's float32 rows rounded: "
+                 f"max |d| {max_abs_diff((packed, rows_half), (packed, rows_f32))}", "bit-equal (max |d| 0)"))
+    out = inference.main(["--imsize", str(MOVED_IMSIZE), "--batch_size", str(batch), "--dtype", "float32",
+                          "--max_detections", "20", "--result_dir", str(tmp / "r"), "--export_pipeline",
+                          str(tmp / "p.bin"), "--export_platforms", platform])
+    assert out["export"]["platforms"] == [platform] and out["export"]["batch_size"] == batch
+    assert not (tmp / "r" / "detection").exists()
+    run, _ = load_detection_pipeline(tmp / "p.bin", device=DEVICE)
+    x = np.random.default_rng(4).integers(0, 256, (batch, MOVED_IMSIZE, MOVED_IMSIZE, 3), dtype=np.uint8)
+    live20 = build_detection_pipeline(SSD(num_classes=21, seed=0), True, MOVED_IMSIZE, max_detections=20, device=DEVICE)
+    got, want = run(x, batch), live20(x, batch)
+    assert all(torch.equal(g, w) for g, w in zip(got, want, strict=True))
+    done.append(("tests/test_torch_serving.py::test_inference_cli_exports_the_pipeline",
+                 f"cli.inference --export_pipeline's artifact against the seeded SSD's live pipeline: max |d| "
+                 f"{max_abs_diff(*zip(got, want))}", "bit-equal (max |d| 0)"))
+    try:
+        fresh_out, _ = fresh_proc.communicate(timeout=600)
+    finally:
+        fresh_proc.kill()
+    assert fresh_proc.returncode == 0, fresh_out
+    fresh, want = np.load(path.parent / "packed.npy"), live(images, 2)[0].cpu().numpy()
+    assert np.array_equal(fresh, want)
+    done.append(("tests/test_torch_serving.py::test_load_imports_no_model_code",
+                 f"a fresh interpreter ran the artifact on the card with no module of the port's models loaded "
+                 f"(exit {fresh_proc.returncode}), rows against the live pipeline's max |d| "
+                 f"{max_abs_diff((fresh, want))}", "exit 0, bit-equal rows (max |d| 0)"))
+    return done
+
+
+def moved_evaluate_checks(tmp: Path) -> list:
+    """tests/test_torch_evaluate.py's port-only tests at their sizes (imsize
+    264, batch 3, G 64), on the card."""
+    from object_detection_torch2_tpu_torch.cli import evaluate
+    from object_detection_torch2_tpu_torch.models import quant
+    from object_detection_torch2_tpu_torch.models import ssd as ssd_mod
+    from object_detection_torch2_tpu_torch.models.ssd import SSD
+
+    batch, g_pad, done = 3, 64, Readings()
+    cli = ["--imsize", str(MOVED_IMSIZE), "--batch_size", str(batch), "--bn_mode", "running", "--dtype", "float32",
+           "--strict_ap", "--num_workers", "0"]
+    model = SSD(num_classes=21, seed=1)
+    rng = np.random.default_rng(6)
+    images = rng.integers(0, 256, (2, batch, MOVED_IMSIZE, MOVED_IMSIZE, 3), dtype=np.uint8)
+    gts = np.stack([synth_targets(rng, batch, [2, 1, 3], g_pad) for _ in range(2)])
+    run = evaluate.build_eval_pipeline(model, True, MOVED_IMSIZE, 20, device=DEVICE)
+    half = evaluate.build_eval_pipeline(model, True, MOVED_IMSIZE, 20, device=DEVICE, d2h_half=True)
+    stacked, n_valid = run(images, gts, [3, 2])
+    halved, _ = half(images, gts, [3, 2])
+    worst = 0.0
+    for k, real in enumerate((3, 2)):
+        single, nv = run(images[k], gts[k], real)
+        assert torch.equal(n_valid[k], nv)
+        worst = max(worst, max_abs_diff(*((stacked[key][k], single[key]) for key in single)))
+        for key in single:
+            assert torch.equal(stacked[key][k], single[key]), key
+            if key == "scores":
+                assert halved[key].dtype == torch.float16 and torch.equal(halved[key][k], single[key].half())
+            else:
+                assert torch.equal(halved[key][k], single[key]), key
+    done.append(("tests/test_torch_evaluate.py::test_eval_pipeline_k_stacked_and_half_scores",
+                 f"2 stacked batches against 2 calls: max |d| {worst}; d2h_half casts only the scores to float16",
+                 "bit-equal (max |d| 0)"))
+    convs = {}
+    for flag, calls in (("--trunk_int8", 11), ("--full_int8", 27)):
+        where = tmp / f"eval{flag.strip('-')}"
+        if flag == "--trunk_int8":
+            (where / "detection").mkdir(parents=True)
+            quant.save_quant(where / "detection" / "quant.json", {f"amax_{layer}": 4.0 for layer in quant.QUANT_LAYERS})
+        seen, real_conv = [], ssd_mod.int8_conv
+        ssd_mod.int8_conv = lambda *a: seen.append(1) or real_conv(*a)
+        try:
+            aps, mean_ap, _, _ = evaluate.main(cli + ["--data_dirs", str(FIXTURE), "--result_dir", str(where), flag])
+        finally:
+            ssd_mod.int8_conv = real_conv
+        convs[flag] = len(seen)
+        assert len(seen) == 2 * calls, (flag, len(seen))
+        scored = aps[~np.isnan(aps)]
+        assert len(scored) and ((scored >= 0) & (scored <= 1)).all() and 0 <= mean_ap <= 1
+        assert list((where / "detection").glob("*.md"))
+        if flag == "--full_int8":
+            qd = quant.load_quant(where / "detection" / "quant_full.json")
+            assert quant.missing_layers(qd, quant.FULL_QUANT_LAYERS) == []
+    done.append(("tests/test_torch_evaluate.py::test_cli_int8_flags_run",
+                 f"int8 convolutions over the fixture's 2 batches {convs}; APs in [0, 1], the report, "
+                 f"quant_full.json", "22 and 54 (11 and 27 a batch)"))
+    plain = evaluate.main(cli + ["--data_dirs", str(FIXTURE), "--result_dir", str(tmp / "eval_plain")])
+    aps, mean_ap, strict_mean, strict_aps = plain
+    parity_d = strict_d = 0.0
+    for flags in (["--batches_per_dispatch", "2"], ["--d2h_half"], ["--batches_per_dispatch", "3", "--d2h_half"]):
+        got = evaluate.main(cli + ["--data_dirs", str(FIXTURE), "--result_dir", str(tmp / "eval_plain")] + flags)
+        parity_d = max(parity_d, max_abs_diff((np.nan_to_num(got[0], nan=-1), np.nan_to_num(aps, nan=-1))))
+        strict_d = max(strict_d, max_abs_diff((np.nan_to_num(got[3], nan=-1), np.nan_to_num(strict_aps, nan=-1))))
+        np.testing.assert_array_equal(got[0], aps)
+        assert got[1] == mean_ap
+        if "--d2h_half" in flags:
+            np.testing.assert_array_equal(np.isnan(got[3]), np.isnan(strict_aps))
+            np.testing.assert_allclose(np.nan_to_num(got[3], nan=-1), np.nan_to_num(strict_aps, nan=-1), atol=1e-6)
+        else:
+            np.testing.assert_array_equal(got[3], strict_aps)
+            assert got[2] == strict_mean
+    done.append(("tests/test_torch_evaluate.py::test_cli_flags_match_the_plain_run",
+                 f"K = 2, float16 scores, and K = 3 with float16 scores against the plain run: parity APs max |d| "
+                 f"{parity_d}, strict APs max |d| {strict_d}",
+                 "parity exact (0); strict exact without float16 scores, within 1e-6 with them"))
+    return done
+
+
+def phase_moved_serving(card: str) -> dict:
+    """The port's serving tests that run on the card since they left the CPU
+    run (SLOW_TEST_PHASES): tests/test_torch_inference.py's CLI tests,
+    tests/test_torch_serving.py's export tests and tests/test_torch_evaluate.py's
+    port-only tests, each at its test's size and pins; the kernels' launches
+    over the phase go into the kernels line."""
+    from object_detection_torch2_tpu_torch.tools.common import launch_counts
+
+    t0 = time.perf_counter()
+    reset_launches()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        (tmp / "i").mkdir(), (tmp / "s").mkdir(), (tmp / "e").mkdir()
+        done = moved_inference_checks(tmp / "i") + moved_serving_checks(tmp / "s") + moved_evaluate_checks(tmp / "e")
+    launches = launch_counts()
+    if launches["nms_keep_sorted"] == 0 or launches["conv12"] == 0 or launches["int8_conv"] == 0:
+        raise AssertionError(f"the moved serving checks launched {launches}")
+    print_readings(done, t0)
+    res = {"checks": [{"test": test, "reading": r, "pin": p} for test, r, p, _ in done], "launches": launches,
+           "phase_s": time.perf_counter() - t0}
+    print(f"moved serving checks: {len(done)} tests' checks held on the card; launches {launches}; "
+          f"{res['phase_s']:.1f} s ({card})")
+    torch.cuda.empty_cache()
+    return res
+
+
+def moved_trainer_checks() -> list:
+    """tests/test_torch_train.py's and tests/test_torch_augment.py's
+    port-only Trainer tests at their sizes (imsize 264, batch 2, G 8,
+    conv_1_2 on its kernel), on the card with cuDNN's deterministic
+    algorithms (the bit-equalities need them; the setting is restored)."""
+    from object_detection_torch2_tpu_torch.core import anchors
+    from object_detection_torch2_tpu_torch.data.augment import INV_255
+    from object_detection_torch2_tpu_torch.models.ssd import SSD
+    from object_detection_torch2_tpu_torch.train.optimizer import adam_torch, exponential_epoch_schedule
+    from object_detection_torch2_tpu_torch.train.trainer import Trainer
+
+    df = anchors.default_boxes(anchors.feature_grids_for(MOVED_IMSIZE))
+
+    def batch_of(seed, n=2, g_pad=8):
+        rng = np.random.default_rng(seed)
+        images = rng.integers(0, 256, (n, MOVED_IMSIZE, MOVED_IMSIZE, 3), dtype=np.uint8)
+        return images, synth_targets(rng, n, rng.integers(1, g_pad + 1, n), g_pad)
+
+    def trainer_of(seed=0):
+        trainer = Trainer(SSD(num_classes=21, seed=seed, conv12_kernel=True), default_boxes=df, device=DEVICE)
+        return trainer, trainer.init_state(lambda ps: adam_torch(ps, exponential_epoch_schedule(1e-3, 0.7, 2),
+                                                                 weight_decay=5e-4))
+
+    def aug_trainer_of(augment_cfg):
+        trainer = Trainer(SSD(num_classes=21, seed=0), default_boxes=df, augment=augment_cfg, seed=4, device=DEVICE)
+        return trainer, trainer.init_state(lambda ps: adam_torch(ps, 1e-3, weight_decay=5e-4))
+
+    done = Readings()
+    batches = [batch_of(s) for s in range(3)]
+    (t1, s1), (t2, s2) = trainer_of(), trainer_of()
+    trunk0 = {k: v.clone() for k, v in s1.frozen.items()}
+    stats0 = {k: v.clone() for k, v in s1.batch_stats.items()}
+    singles = torch.stack([t1.train_step(s1, images, targets) for images, targets in batches])
+    stacked = t2.train_steps(s2, np.stack([b[0] for b in batches]), np.stack([b[1] for b in batches]))
+    assert tuple(stacked.shape) == (3,) and torch.isfinite(stacked).all()
+    worst = max_abs_diff((singles, stacked), *zip(s1.model.state_dict().values(), s2.model.state_dict().values()))
+    assert torch.equal(singles, stacked), (singles, stacked)
+    assert s1.step == s2.step == 3
+    for (name, a), b in zip(s1.model.state_dict().items(), s2.model.state_dict().values()):
+        assert torch.equal(a, b), name
+    for name, p in s1.frozen.items():
+        assert torch.equal(p, trunk0[name]), name
+    assert all(not torch.equal(b, stats0[name]) for name, b in s1.batch_stats.items())
+    done.append(("tests/test_torch_train.py::test_train_steps_equals_single_steps",
+                 f"a K = 3 call against 3 steps, losses and every state tensor: max |d| {worst}; the trunk "
+                 f"bit-unchanged, every statistic moved", "bit-equal (max |d| 0)"))
+
+    trainer, state = trainer_of()
+    captured = []
+    apply = state.apply_gradients
+    state.apply_gradients = lambda grads: (captured.extend(grads), apply(grads))
+    before = {k: v.clone() for k, v in state.model.named_parameters()}
+    loss = trainer.train_step(state, batch_of(1)[0], np.zeros((2, 8, 25), np.float32))
+    assert loss.item() == 0.0
+    assert len(captured) == 52 and all(g is not None and not g.any() for g in captured)
+    assert all(int(s["step"]) == 1 for s in state.optimizer.state.values())
+    assert set(state.optimizer.state) == set(state.trainable.values())
+    for name, p in state.model.named_parameters():
+        moves = name in state.trainable and bool(before[name].any())
+        assert torch.equal(p, before[name]) != moves, name
+    done.append(("tests/test_torch_train.py::test_zero_gradients_arrive_as_zeros",
+                 f"an all-void batch's loss {loss.item()}, {len(captured)} gradients reach Adam, their max |g| "
+                 f"{max(float(g.abs().max()) for g in captured)}; decay moves the nonzero trainable weights only",
+                 "loss 0.0, 52 zero gradients"))
+
+    (t1, s1), (t2, s2) = trainer_of(), trainer_of()
+    images, targets = batch_of(4)
+    a = t1.train_step(s1, images, targets)
+    b = t2.train_step(s2, torch.from_numpy(images).float() * INV_255, targets)
+    assert torch.equal(a, b), (a, b)
+    done.append(("tests/test_torch_train.py::test_uint8_and_float_inputs_take_the_same_step",
+                 f"the uint8 step's loss against the float step's: |d| {max_abs_diff((a, b))}",
+                 "bit-equal (|d| 0)"))
+
+    trainer, state = trainer_of()
+    images, targets = batch_of(2)
+    params0 = {k: v.clone() for k, v in state.model.named_parameters()}
+    stats0 = {k: v.clone() for k, v in state.batch_stats.items()}
+    shadow_trainer, shadow = trainer_of()
+    loss = trainer.eval_step(state, images, targets)
+    assert not loss.requires_grad and state.step == 0
+    for name, p in state.model.named_parameters():
+        assert torch.equal(p, params0[name]) and p.grad is None, name
+    assert all(not torch.equal(b, stats0[name]) for name, b in state.batch_stats.items())
+    shadow_loss = shadow_trainer.train_step(shadow, images, targets)
+    assert torch.equal(loss, shadow_loss)
+    done.append(("tests/test_torch_train.py::test_eval_step_updates_running_stats_only",
+                 f"no gradient or parameter change, the statistics moved; the loss against a train step's |d| "
+                 f"{max_abs_diff((loss, shadow_loss))}", "bit-equal (|d| 0)"))
+
+    rng = np.random.default_rng(11)
+    images = rng.integers(0, 256, (2, 2, MOVED_IMSIZE, MOVED_IMSIZE, 3), dtype=np.uint8)
+    targets = np.stack([synth_targets(rng, 2, rng.integers(1, 5, 2), 8) for _ in range(2)])
+    (t1, s1), (t2, s2), (t3, s3) = aug_trainer_of(True), aug_trainer_of(True), aug_trainer_of(False)
+    singles = torch.stack([t1.train_step(s1, images[i], targets[i]) for i in range(2)])
+    stacked = t2.train_steps(s2, images, targets)
+    worst = max_abs_diff((singles, stacked), *zip(s1.model.state_dict().values(), s2.model.state_dict().values()))
+    assert torch.equal(singles, stacked)
+    for a, b in zip(s1.model.state_dict().values(), s2.model.state_dict().values()):
+        assert torch.equal(a, b)
+    plain = t3.train_step(s3, images[0], targets[0])
+    assert not torch.equal(singles[0], plain)
+    done.append(("tests/test_torch_augment.py::test_augmented_train_steps_equal_single_steps",
+                 f"with augment on, a K = 2 call against 2 steps: max |d| {worst}; the augment moves the first "
+                 f"loss by {max_abs_diff((singles[0], plain))}", "bit-equal (max |d| 0); a loss other than 0 off"))
+    rng = np.random.default_rng(12)
+    images = rng.integers(0, 256, (2, MOVED_IMSIZE, MOVED_IMSIZE, 3), dtype=np.uint8)
+    targets = synth_targets(rng, 2, rng.integers(1, 5, 2), 8)
+    trainer, state = aug_trainer_of({"hue": 0.05})
+    plain = trainer.eval_step(state, images, targets)
+    again = trainer.eval_step(state, images, targets, rng=torch.Generator().manual_seed(1), augment=False)
+    aug = trainer.eval_step(state, images, targets, rng=torch.Generator().manual_seed(1), augment=True)
+    assert torch.equal(plain, again) and not torch.equal(plain, aug)
+    done.append(("tests/test_torch_augment.py::test_eval_step_augments_only_when_asked",
+                 f"eval_step without augment against the plain loss |d| {max_abs_diff((plain, again))}; with "
+                 f"augment it moves by {max_abs_diff((plain, aug))}", "bit-equal (|d| 0); other than 0"))
+    return done
+
+
+def moved_quant_check() -> tuple:
+    """tests/test_torch_quant.py::test_full_int8_tracks_float at its size
+    (the seeded SSD at imsize 264, its two seeded images), on the card:
+    calibrate_full's 28 amaxes, all positive, and the full-int8 output
+    against the float output, cosine > 0.95."""
+    from object_detection_torch2_tpu_torch.models import quant
+    from object_detection_torch2_tpu_torch.models.ssd import SSD
+
+    model = SSD(num_classes=21, seed=0).to(DEVICE)
+    imgs = np.random.default_rng(5).random((2, MOVED_IMSIZE, MOVED_IMSIZE, 3)).astype(np.float32)
+    x = torch.from_numpy(imgs).to(DEVICE)
+    qd = quant.calibrate_full(model, [x])
+    assert set(qd) == {f"amax_{layer}" for layer in quant.FULL_QUANT_LAYERS} and all(v > 0 for v in qd.values())
+    q = SSD(num_classes=21, full_int8=True)
+    q.load_state_dict(model.state_dict())
+    q = q.to(DEVICE)
+    q.set_quant(qd)
+    with torch.no_grad():
+        ref, out = model(x), q(x)
+    assert out.shape == ref.shape and bool(torch.isfinite(out).all())
+    c = cosine(out, ref)
+    assert c > 0.95, c
+    return ("tests/test_torch_quant.py::test_full_int8_tracks_float",
+            f"{len(qd)} amaxes, all positive; the full-int8 output against the float output: cosine {c:.6f}",
+            "cosine > 0.95")
+
+
+def moved_vgg_checks() -> list:
+    """tests/test_torch_vgg.py's port-only full-width tests on the card: the
+    state_dict's layout and heads (a training step at imsize 200, batch 2:
+    only the selected head gets gradients) and the dropout's draws from its
+    generator (a generator on the card)."""
+    from object_detection_torch2_tpu_torch.models.vgg16 import VGG16, dropout
+
+    done = Readings()
+    model = VGG16(num_classes=20, transfer_learning=True, dropout_rate=0.0)
+    names = list(model.state_dict())
+    assert names[:7] == ["features.conv_1_1.weight", "features.conv_1_1.bias", "features.bn_1_1.weight",
+                         "features.bn_1_1.bias", "features.bn_1_1.running_mean", "features.bn_1_1.running_var",
+                         "features.bn_1_1.num_batches_tracked"]
+    heads = [n for n in names if n.startswith("classifier")]
+    assert heads == [f"{h}_fc{i}.{leaf}" for h in ("classifier", "classifier2") for i in (1, 2, 3)
+                     for leaf in ("weight", "bias")]
+    assert model.classifier_fc1.weight.shape == (4096, 512 * 7 * 7) and model.classifier2_fc3.weight.shape == (20, 4096)
+    model = model.to(DEVICE)
+    x = torch.rand(2, 200, 200, 3, generator=torch.Generator().manual_seed(0)).to(DEVICE)
+    out = model(x, train=True)
+    out.sum().backward()
+    assert tuple(out.shape) == (2, 20)
+    dead, live = model.classifier_fc1.weight.grad, model.classifier2_fc1.weight.grad
+    assert dead is None and live is not None
+    done.append(("tests/test_torch_vgg.py::test_state_dict_layout_and_heads",
+                 f"{len(heads)} head tensors named as the JAX package's layers; a training step's output "
+                 f"{tuple(out.shape)}, the dead head's gradient {dead}, the selected head's max |g| "
+                 f"{float(live.abs().max()):.3e}", "(2, 20); None; a gradient"))
+    del model, out
+    x = torch.ones(64, 4096, device=DEVICE)
+    a = dropout(x, 0.5, torch.Generator(device=DEVICE).manual_seed(1))
+    b = dropout(x, 0.5, torch.Generator(device=DEVICE).manual_seed(1))
+    c = dropout(x, 0.5, torch.Generator(device=DEVICE).manual_seed(2))
+    kept = float((a > 0).float().mean())
+    assert torch.equal(a, b) and not torch.equal(a, c)
+    assert set(a.unique().tolist()) == {0.0, 2.0}
+    assert abs(kept - 0.5) < 0.01
+    assert torch.equal(dropout(x, 1.0, torch.Generator(device=DEVICE)), torch.zeros_like(x))
+    model = VGG16(num_classes=20, transfer_learning=True).to(DEVICE)
+    try:
+        model(torch.rand(1, 200, 200, 3, device=DEVICE), train=True)
+        raise AssertionError("a training forward without a generator ran")
+    except ValueError as e:
+        assert "generator" in str(e), e
+    with torch.no_grad():
+        plain = model(torch.rand(1, 200, 200, 3, generator=torch.Generator().manual_seed(0)).to(DEVICE), train=False)
+    assert tuple(plain.shape) == (1, 20)
+    done.append(("tests/test_torch_vgg.py::test_dropout_draws_from_its_generator",
+                 f"kept share {kept:.4f}, values {{0, 2}}, one seed one mask, another seed another, p = 1 all zeros; "
+                 f"a training forward without a generator refused; an eval forward {tuple(plain.shape)}",
+                 "kept share within 0.01 of 0.5; the rest exact"))
+    del model
+    torch.cuda.empty_cache()
+    return done
+
+
+class _Killed(BaseException):
+    """A kill landing in a save, before its rename."""
+
+
+def moved_train_cli_checks(tmp: Path) -> list:
+    """tests/test_torch_checkpoint.py's kill-and-resume, tests/test_torch_train_cli.py's
+    --steps_per_dispatch and classification tests, at their sizes on the
+    fixture tree (imsize 264, batch 2; classification at 200), on the card."""
+    import contextlib
+    import io
+    import os
+
+    from object_detection_torch2_tpu_torch.cli import common, train
+    from object_detection_torch2_tpu_torch.models.convert import vgg16_state_dict_from_jax_variables
+    from object_detection_torch2_tpu_torch.models.vgg16 import VGG16
+    from object_detection_torch2_tpu_torch.train import checkpoint as ckpt
+
+    done = Readings()
+    base = ["--data_dirs", str(FIXTURE), "--imsize", str(MOVED_IMSIZE), "--batch_size", "2", "--dtype", "float32",
+            "--num_workers", "0"]
+    k = tmp / "kill"
+    argv = base + ["--steps_per_epoch", "1", "--train_aug", "none", "--val_aug", "none", "--result_dir",
+                   str(k / "r"), "--log_dir", str(k / "logs"), "--orbax_dir", str(k / "state")]
+    weights = k / "r" / "detection" / "weights.msgpack"
+    train.main(argv + ["--epochs", "1"])
+    epoch1 = weights.read_bytes()
+    replace = ckpt.os.replace
+    ckpt.os.replace = lambda *a: (_ for _ in ()).throw(_Killed())
+    try:
+        train.main(argv + ["--epochs", "1"])
+        raise AssertionError("the save was not killed")
+    except _Killed:
+        pass
+    finally:
+        ckpt.os.replace = replace
+    assert weights.read_bytes() == epoch1 and sorted(p.name for p in (k / "state").iterdir()) == ["1"]
+    read, load = [], ckpt.load_weights
+    ckpt.load_weights = lambda path: read.append(Path(path).read_bytes()) or load(path)
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            out = train.main(argv + ["--epochs", "1"])
+    finally:
+        ckpt.load_weights = load
+    printed = buf.getvalue()
+    sys.stdout.write(printed)
+    assert read == [epoch1]
+    assert "Full state restored (exact optimizer resume)." in printed and "[Epoch 2/2]" in printed
+    assert len(out["phase_times"]) == 1 and out["state"].step == 2
+    assert weights.read_bytes() != epoch1 and sorted(p.name for p in (k / "state").iterdir()) == ["1", "2"]
+    done.append(("tests/test_torch_checkpoint.py::test_resume_after_a_kill_in_a_weights_save",
+                 f"killed in epoch 2's save, epoch 1's weights file whole ({len(epoch1)} bytes, equal); the resume "
+                 f"read it ({len(read)} read), restored the full state, trained epoch 2 to step {out['state'].step}",
+                 "the file unchanged, read once, step 2"))
+
+    def cli_run(where: Path, *flags):
+        return train.main(base + ["--result_dir", str(where / "result"), "--log_dir", str(where / "logs"),
+                                  "--orbax_dir", str(where / "state"), "--epochs", "1", "--val_aug", "none", *flags])
+
+    def full_state(where: Path, step: int) -> dict:
+        return torch.load(where / "state" / str(step) / ckpt.STATE_FILE, map_location="cpu", weights_only=True)
+
+    def assert_trees_equal(a, b, path=""):
+        if isinstance(a, dict):
+            assert a.keys() == b.keys(), path
+            for key in a:
+                assert_trees_equal(a[key], b[key], f"{path}/{key}")
+        elif isinstance(a, torch.Tensor):
+            assert torch.equal(a, b), path
+        else:
+            assert a == b, path
+
+    one, two = cli_run(tmp / "k1"), cli_run(tmp / "k2", "--steps_per_dispatch", "2")
+    state_one, state_two = full_state(tmp / "k1", 2), full_state(tmp / "k2", 2)
+    worst = max_abs_diff((two["losses"][0], one["losses"][0]),
+                         *((v, state_one["model"][key]) for key, v in state_two["model"].items()))
+    assert torch.equal(two["losses"][0].cpu(), one["losses"][0].cpu())
+    assert_trees_equal(state_two, state_one)
+    done.append(("tests/test_torch_train_cli.py::test_steps_per_dispatch_2_equals_1",
+                 f"one epoch at K = 2 against K = 1: losses and model state max |d| {worst}; the full states equal",
+                 "bit-equal (max |d| 0)"))
+
+    c = tmp / "cls"
+    out = train.main(["--purpose", "classification", "--data_dirs", str(FIXTURE), "--imsize", "200", "--batch_size",
+                      "2", "--dtype", "float32", "--num_workers", "0", "--steps_per_epoch", "2", "--result_dir",
+                      str(c / "result"), "--log_dir", str(c / "logs")])
+    state = out["state"]
+    assert state.step == 2 and bool(torch.isfinite(out["losses"][0]).all()) and np.isfinite(out["val_losses"][0])
+    init = VGG16(num_classes=20, transfer_learning=True).state_dict()
+    for name, p in state.frozen.items():
+        assert name.startswith("classifier_fc") and torch.equal(p.cpu(), init[name]), name
+    assert set(state.optimizer.state) == set(state.trainable.values()) and len(state.trainable) == 58
+    path = c / "result" / "classification" / "weights.msgpack"
+    vgg = vgg16_state_dict_from_jax_variables(ckpt.load_weights(path))
+    for name, t in state.model.state_dict().items():
+        assert torch.equal(vgg[name], t.cpu()) or name.endswith("num_batches_tracked"), name
+    ssd_args = train.parse_args(["--result_dir", str(c / "result"), "--dtype", "float32"])
+    model, _ = common.build_ssd(ssd_args, c / "result" / "detection" / "weights.msgpack")
+    sd = model.state_dict()
+    trunk = [key for key in vgg if key.startswith("features.") and not key.endswith("num_batches_tracked")]
+    assert len(trunk) == 13 * 6
+    for key in trunk:
+        assert torch.equal(sd[key].cpu(), vgg[key]), key
+    seeded = type(model)(num_classes=21, seed=0).state_dict()
+    assert all(torch.equal(sd[key].cpu(), seeded[key]) for key in sd if key.startswith("detectors."))
+    os.unlink(path)
+    done.append(("tests/test_torch_train_cli.py::test_classification_purpose_seeds_the_ssd_trunk",
+                 f"{state.step} VGG16 steps, losses finite, the dead head bit-unchanged without Adam moments; "
+                 f"build_ssd's {len(trunk)} trunk tensors against the weights file: max |d| "
+                 f"{max_abs_diff(*((sd[key], vgg[key]) for key in trunk))}", "bit-equal (max |d| 0)"))
+    return done
+
+
+def phase_moved_training(card: str) -> dict:
+    """The port's training tests that run on the card since they left the CPU
+    run (SLOW_TEST_PHASES), each at its test's size and pins; the kernels'
+    launches over the phase go into the kernels line."""
+    from object_detection_torch2_tpu_torch.tools.common import launch_counts
+
+    t0 = time.perf_counter()
+    reset_launches()
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        done = moved_trainer_checks()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    done.append(moved_quant_check())
+    done += moved_vgg_checks()
+    with tempfile.TemporaryDirectory() as tmp:
+        done += moved_train_cli_checks(Path(tmp))
+    launches = launch_counts()
+    if launches["conv12"] == 0:
+        raise AssertionError(f"the moved training checks launched {launches}")
+    print_readings(done, t0)
+    res = {"checks": [{"test": test, "reading": r, "pin": p} for test, r, p, _ in done], "launches": launches,
+           "phase_s": time.perf_counter() - t0}
+    print(f"moved training checks: {len(done)} tests' checks held on the card; launches {launches}; "
+          f"{res['phase_s']:.1f} s ({card})")
+    torch.cuda.empty_cache()
+    return res
 
 
 def proof_launches(proofs: dict) -> dict:
@@ -3334,6 +4119,15 @@ def main(argv=None) -> int:
                        (entries[2], "int8_conv"), (entries[3], "quantize_act")):
         entry["launches_by_path"]["voc_scale"] = vs[key]
         entry["launches"] += vs[key]
+    results["moved_serving"] = timed(phase_moved_serving, card)
+    results["moved_training"] = timed(phase_moved_training, card)
+    for path in ("moved_serving", "moved_training"):
+        moved = results[path]["launches"]
+        for entry, key in ((entries[0], "nms_keep_sorted"), (entries[1], "conv12"),
+                           (entries[1]["bfloat16"], "conv12_bf16"), (entries[2], "int8_conv"),
+                           (entries[3], "quantize_act")):
+            entry["launches_by_path"][path] = moved[key]
+            entry["launches"] += moved[key]
     cls = results["cls_trajectory"]["launches"]  # VGG16 runs on cuDNN: none of these kernels
     for entry, key in ((entries[0], "nms_keep_sorted"), (entries[1], "conv12"), (entries[1]["bfloat16"], "conv12_bf16"),
                        (entries[2], "int8_conv"), (entries[3], "quantize_act")):

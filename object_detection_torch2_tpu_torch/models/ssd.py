@@ -77,6 +77,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.nn.utils import skip_init
 
 from object_detection_torch2_tpu_torch import true_float32
 from object_detection_torch2_tpu_torch.models import quant
@@ -187,7 +188,9 @@ class SSD(nn.Module):
 
     Weights are drawn from `torch.Generator().manual_seed(seed)` on the CPU —
     kaiming-normal fan_out convs with zero bias (reference: ssd.py:144-146) —
-    so a seed gives the same model on every device.
+    so a seed gives the same model on every device. The convolutions are
+    built without torch's default init (`skip_init`), which these draws
+    overwrite, so nothing is drawn from torch's global generator.
     """
 
     def __init__(self, num_classes: int = 21, dtype: torch.dtype = torch.float32, seed: int = 0,
@@ -209,11 +212,11 @@ class SSD(nn.Module):
         self._int8_weights = {}  # layer -> (key, weight, w8, sw): see _int8_weight
         self.features = nn.ModuleDict()
         for suffix, cin, cout, k, stride, pad, _ in LAYER_SPECS:
-            self.features[f"conv_{suffix}"] = nn.Conv2d(cin, cout, k, stride=stride, padding=pad)
+            self.features[f"conv_{suffix}"] = skip_init(nn.Conv2d, cin, cout, k, stride=stride, padding=pad)
             self.features[f"bn_{suffix}"] = BatchNorm(cout)
         out_ch = dict((s, cout) for s, _, cout, *_ in LAYER_SPECS)
         self.detectors = nn.ModuleDict({
-            f"det_{s}": nn.Conv2d(out_ch[s], a * (num_classes + 4), 3, padding=1)
+            f"det_{s}": skip_init(nn.Conv2d, out_ch[s], a * (num_classes + 4), 3, padding=1)
             for s, a in DETECTOR_TAPS
         })
         self.reset_parameters(seed)

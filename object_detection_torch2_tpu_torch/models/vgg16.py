@@ -44,6 +44,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.nn.utils import skip_init
 
 from object_detection_torch2_tpu_torch import true_float32
 from object_detection_torch2_tpu_torch.models.bn import BatchNorm, set_mesh  # noqa: F401
@@ -93,9 +94,11 @@ class VGG16(nn.Module):
 
     Weights are drawn from `torch.Generator().manual_seed(seed)` on the CPU,
     as torchvision's VGG does: kaiming-normal fan_out convs, normal(0, 0.01)
-    linears, zero biases, unit BatchNorm. The JAX package's `PRNGKey` init
-    cannot be reproduced in torch, so the two packages' untrained models
-    differ."""
+    linears, zero biases, unit BatchNorm. The layers are built without
+    torch's default init (`skip_init`), which these draws overwrite, so
+    nothing is drawn from torch's global generator. The JAX package's
+    `PRNGKey` init cannot be reproduced in torch, so the two packages'
+    untrained models differ."""
 
     def __init__(self, num_classes: int = 20, transfer_learning: bool = False, dropout_rate: float = 0.5,
                  dtype: torch.dtype = torch.float32, seed: int = 0):
@@ -112,13 +115,13 @@ class VGG16(nn.Module):
         cin = 3
         for name, arg in self.layers:
             if name.startswith("conv_"):
-                self.features[name] = nn.Conv2d(cin, arg, 3, padding=1)
+                self.features[name] = skip_init(nn.Conv2d, cin, arg, 3, padding=1)
                 self.features[f"bn{name[4:]}"] = BatchNorm(arg)
                 cin = arg
         for head, out in (("classifier", 1000), ("classifier2", num_classes)):
             widths = (cin * GRID * GRID, *HEAD_WIDTHS, out)
             for i in range(3):
-                self.add_module(f"{head}_fc{i + 1}", nn.Linear(widths[i], widths[i + 1]))
+                self.add_module(f"{head}_fc{i + 1}", skip_init(nn.Linear, widths[i], widths[i + 1]))
         self.reset_parameters(seed)
 
     @torch.no_grad()

@@ -8,7 +8,9 @@ and feeds them to the port's `apply_augment`. Tolerances on pixels: float32
 max |d| <= 2e-6 (XLA on the CPU contracts a*b + c into fused multiply-adds,
 PyTorch rounds the product, so single values differ by an ulp or two);
 bfloat16 within 1 bfloat16 ulp (on the CPU the two agree bit for bit).
-Masks and GTs are bit-equal."""
+Masks and GTs are bit-equal. The augmented Trainer's K-steps equality and
+eval_step, port only, are marked `slow`: chip_smoke.py's `phase_moved_training`
+holds them on the card."""
 
 import jax
 import jax.numpy as jnp
@@ -316,6 +318,7 @@ def _trainer(augment_cfg):
     return trainer, trainer.init_state(lambda ps: adam_torch(ps, 1e-3, weight_decay=5e-4))
 
 
+@pytest.mark.slow
 def test_augmented_train_steps_equal_single_steps():
     """With augment on, a K = 2 `train_steps` call equals two `train_step`s
     bit for bit (the draws depend on the step only), and the augment changes
@@ -331,7 +334,11 @@ def test_augmented_train_steps_equal_single_steps():
     assert not torch.equal(singles[0], t3.train_step(s3, images[0], targets[0]))
 
 
+@pytest.mark.slow
 def test_eval_step_augments_only_when_asked():
+    """eval_step augments only with augment=True: without it the loss is
+    the plain one bit for bit, with it another. Port only: marked slow,
+    chip_smoke.py's phase_moved_training holds it on the card."""
     rng = np.random.default_rng(12)
     images = rng.integers(0, 256, (2, 264, 264, 3), dtype=np.uint8)
     targets = synth_targets(rng, 2, rng.integers(1, 5, 2), 8)

@@ -3,7 +3,9 @@
 and writes the same bytes, `train/checkpoint.py` round-trips weights and
 params.json with the JAX package's, `cli.common.build_ssd` loads a JAX
 checkpoint into the port's SSD, and a save killed before its rename leaves
-the previous file whole (a resumed `cli.train` reads it)."""
+the previous file whole (a resumed `cli.train` reads it). The kill-and-resume
+CLI test is marked `slow`: chip_smoke.py's `phase_moved_training` holds it on
+the card."""
 
 import argparse
 from pathlib import Path
@@ -207,6 +209,7 @@ def test_an_interrupted_save_leaves_the_old_file(tmp_path, monkeypatch, what):
     assert path.read_bytes() == (tmp_path / "jax1").read_bytes() and not tmp.exists()
 
 
+@pytest.mark.slow
 def test_resume_after_a_kill_in_a_weights_save(tmp_path, monkeypatch, capsys):
     """cli.train killed inside epoch 2's weights save (before the rename) and
     resumed from the full state: the resumed run reads epoch 1's weights
@@ -246,8 +249,11 @@ def test_resume_after_a_kill_in_a_weights_save(tmp_path, monkeypatch, capsys):
 @pytest.fixture(scope="module")
 def jax_init():
     jmodel = JaxSSD(num_classes=21)
-    variables = jax.jit(lambda k: jmodel.init(k, jnp.zeros((1, IMSIZE, IMSIZE, 3)), train=False))(
-        jax.random.PRNGKey(0))
+    # one program, compiled at XLA's backend optimization level 1: a third of
+    # the default level's compile CPU, the same variables bit for bit
+    init = jax.jit(lambda k: jmodel.init(k, jnp.zeros((1, IMSIZE, IMSIZE, 3)), train=False))
+    key = jax.random.PRNGKey(0)
+    variables = init.lower(key).compile(compiler_options={"xla_backend_optimization_level": 1})(key)
     return jmodel, jax.tree.map(np.asarray, variables)
 
 
@@ -263,7 +269,8 @@ def test_jax_weights_file_loads_into_build_ssd(tmp_path, jax_init):
     model, labelmap = build_ssd(_args(tmp_path), path)
     assert len(labelmap) == 20 and model.dtype == torch.float32
     x = np.random.default_rng(9).uniform(0, 1, (1, IMSIZE, IMSIZE, 3)).astype(np.float32)
-    want = np.asarray(jmodel.apply(variables, jnp.asarray(x), train=False, use_batch_stats=False))
+    forward = jax.jit(lambda v, images: jmodel.apply(v, images, train=False, use_batch_stats=False))
+    want = np.asarray(forward(variables, jnp.asarray(x)))
     with torch.inference_mode():
         got = model.eval()(torch.from_numpy(x), use_batch_stats=False).numpy()
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)

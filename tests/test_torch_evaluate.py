@@ -1,7 +1,10 @@
 """The port's evaluation slice as a whole on the CPU: its `build_eval_pipeline`
 and its `cli.evaluate.main` against the JAX package's evaluation pipeline, on
 the JAX package's own init weights (a weights.msgpack written by the JAX
-package for the CLI)."""
+package for the CLI). Its port-only tests (K stacked batches and float16
+scores, the int8 flags, the CLI's flags against its plain run) are marked
+`slow`: chip_smoke.py's `phase_moved_serving` holds each at its pins on the
+card."""
 
 from pathlib import Path
 
@@ -34,6 +37,7 @@ CLI_ARGS = ["--imsize", str(IMSIZE), "--batch_size", str(BATCH), "--bn_mode", "r
             "--device", "cpu", "--strict_ap", "--num_workers", "0"]
 
 
+@pytest.mark.slow
 def test_eval_pipeline_k_stacked_and_half_scores():
     """build_eval_pipeline on K stacked batches equals K calls; d2h_half
     casts only the scores leaf to float16."""
@@ -87,6 +91,7 @@ def test_cli_unported_flags_raise(tmp_path, flags, item, capsys):
     assert len(aps) == 20 and item == "G"
 
 
+@pytest.mark.slow
 @pytest.mark.parametrize("flag,calls", [("--trunk_int8", 11), ("--full_int8", 27)])
 def test_cli_int8_flags_run(tmp_path, monkeypatch, flag, calls):
     """--trunk_int8 (scales from the quant.json the training CLI writes) and
@@ -133,8 +138,11 @@ def jax_side():
     """The JAX package's init variables and its evaluation pipeline, compiled
     once for (3, 264, 264, 3) images and (3, 64, 25) GTs, running statistics."""
     jmodel = JaxSSD(num_classes=21)
-    variables = jax.jit(lambda k: jmodel.init(k, jnp.zeros((1, IMSIZE, IMSIZE, 3)), train=False))(
-        jax.random.PRNGKey(0))
+    # one program, compiled at XLA's backend optimization level 1: a third of
+    # the default level's compile CPU, the same variables bit for bit
+    init = jax.jit(lambda k: jmodel.init(k, jnp.zeros((1, IMSIZE, IMSIZE, 3)), train=False))
+    key = jax.random.PRNGKey(0)
+    variables = init.lower(key).compile(compiler_options={"xla_backend_optimization_level": 1})(key)
     variables = jax.tree.map(np.asarray, variables)
     run = jax_eval_pipeline(jmodel, use_batch_stats=False, imsize=IMSIZE, num_classes=20)
     jvars = jax.tree.map(jnp.asarray, variables)
@@ -241,16 +249,25 @@ def test_cli_main_records_gives_same_aps(cli_run, tmp_path):
     np.testing.assert_array_equal(got[1:3], (mean_ap, strict_mean))
 
 
+@pytest.fixture(scope="module")
+def plain_cli_run(tmp_path_factory):
+    """The CLI on the fixture tree with the seeded SSD (no weights file): its
+    APs, the port's alone."""
+    return evaluate.main(CLI_ARGS + ["--data_dirs", str(FIXTURE), "--result_dir",
+                                     str(tmp_path_factory.mktemp("plain"))])
+
+
+@pytest.mark.slow
 @pytest.mark.parametrize("flags", [["--batches_per_dispatch", "2"], ["--d2h_half"],
                                    ["--batches_per_dispatch", "3", "--d2h_half"]])
-def test_cli_flags_match_the_plain_run(cli_run, tmp_path, flags):
+def test_cli_flags_match_the_plain_run(plain_cli_run, tmp_path, flags):
     """K batches a call (2: both batches in one call; 3: more than there
     are, so each runs alone) gives the plain run's APs exactly; with float16
     match scores the parity APs (recall) are exact and the strict APs within
-    1e-6 (no two of these scores round to a tie)."""
-    result_dir, (aps, mean_ap, strict_mean, strict_aps), _ = cli_run
-    (tmp_path / "detection").mkdir()
-    (tmp_path / "detection" / "weights.msgpack").write_bytes((result_dir / "detection" / "weights.msgpack").read_bytes())
+    1e-6 (no two of these scores round to a tie). The seeded SSD's, port
+    against port: marked slow, chip_smoke.py's phase_moved_serving holds it
+    on the card."""
+    aps, mean_ap, strict_mean, strict_aps = plain_cli_run
     got = evaluate.main(CLI_ARGS + ["--data_dirs", str(FIXTURE), "--result_dir", str(tmp_path)] + flags)
     np.testing.assert_array_equal(got[0], aps)
     assert got[1] == mean_ap

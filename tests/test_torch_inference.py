@@ -1,6 +1,9 @@
 """The port's inference slice on the CPU: utils/render.py against the JAX
 package's drawing, and `cli.inference.main --device cpu` on the fixture tree
-and on packed records against the port's own pipeline and render."""
+and on packed records against the port's own pipeline and render. The
+CLI tests, port against port at full width, are marked `slow`: chip_smoke.py's
+`phase_moved_serving` holds each at its pins on the card (`python -m pytest -m
+slow tests/test_torch_inference.py` runs them here)."""
 
 import sys
 from pathlib import Path
@@ -106,6 +109,7 @@ def plain_pngs(records):
     return _expected_pngs(np.asarray(RecordDataset(records).images))
 
 
+@pytest.mark.slow
 @pytest.mark.parametrize("source", ["voc", "records"])
 def test_cli_main_renders_the_pipeline_detections(tmp_path, records, plain_pngs, source):
     """One PNG per image, numbered 1..4 across the two batches, each equal to
@@ -119,6 +123,7 @@ def test_cli_main_renders_the_pipeline_detections(tmp_path, records, plain_pngs,
         np.testing.assert_array_equal(np.asarray(Image.open(path).convert("RGB")), w)
 
 
+@pytest.mark.slow
 @pytest.mark.parametrize("flags", [["--batches_per_dispatch", "2"], ["--batches_per_dispatch", "3", "--d2h_half"]])
 def test_cli_flags_render_the_same_pngs(tmp_path, records, plain_pngs, flags):
     """K batches a call: the plain run's PNGs; float16 rows: the render of the
@@ -162,6 +167,7 @@ def one_process_export(tmp_path_factory):
     return _export(tmp_path_factory.mktemp("export_one"))
 
 
+@pytest.mark.slow
 @pytest.mark.parametrize("flags,item", [(["--distributed"], "G"), (["--num_devices", "2"], "G")])
 def test_cli_unported_flags_raise(tmp_path, flags, item, monkeypatch, one_process_export):
     """The flags of ROADMAP Queue 1 item G (data parallelism), ported:
@@ -184,6 +190,7 @@ def test_cli_unported_flags_raise(tmp_path, flags, item, monkeypatch, one_proces
     assert item == "G"
 
 
+@pytest.mark.slow
 def test_cli_export_under_a_distributed_world_of_one(tmp_path, monkeypatch, one_process_export):
     """--export_pipeline --distributed under torchrun's environment for a
     world of one (gloo on the CPU): rank 0 writes the artifact, whose
@@ -207,6 +214,7 @@ def test_cli_export_under_a_distributed_world_of_one(tmp_path, monkeypatch, one_
     assert not dist.is_initialized() and not (tmp_path / "x").exists()
 
 
+@pytest.mark.slow
 @pytest.mark.parametrize("flag", ["--trunk_int8", "--full_int8"])
 def test_cli_int8_flags_render_the_int8_model(tmp_path, records, flag):
     """--trunk_int8 (scales from quant.json) and --full_int8 (calibrated

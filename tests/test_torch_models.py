@@ -139,6 +139,23 @@ def test_seeded_init_is_deterministic_kaiming():
         SSD(dtype=torch.float16)
 
 
+def test_seeded_init_without_the_default_init_is_bit_equal(monkeypatch):
+    """The convolutions are built without torch's default init, which the
+    seeded draws overwrite: the state_dict equals the one built with the
+    default init first (the oracle, as the model was built before), bit for
+    bit, and torch's global generator is left as it was."""
+    from object_detection_torch2_tpu_torch.models import ssd as ssd_module
+
+    rng = torch.get_rng_state()
+    got = SSD(num_classes=21, seed=5).state_dict()
+    assert torch.equal(torch.get_rng_state(), rng)
+    monkeypatch.setattr(ssd_module, "skip_init", lambda cls, *args, **kwargs: cls(*args, **kwargs))
+    want = SSD(num_classes=21, seed=5).state_dict()
+    assert list(got) == list(want)
+    for k in want:
+        assert got[k].dtype == want[k].dtype and torch.equal(got[k], want[k]), k
+
+
 def test_converter_round_trips_with_jax_converter(goldens):
     g = goldens("ssd_forward_pinned")
     sd = synth_scaled_state_dict_from_manifest(g["manifest_keys"], g["manifest_shapes"])
@@ -169,11 +186,18 @@ def test_converter_rejects_bad_state_dicts():
 
 def test_jax_init_weights_forward_matches_jax_at_small_size():
     """The JAX package's own init weights, carried across by the converter,
-    give the same head outputs at imsize 264 in both frameworks."""
+    give the same head outputs at imsize 264 in both frameworks. The init and
+    the forward are each one jitted program, the forward's arrays passed as
+    its arguments."""
     jmodel = JaxSSD(num_classes=21)
-    variables = jmodel.init(jax.random.PRNGKey(0), jnp.zeros((1, 264, 264, 3)), train=False)
+    # one program, compiled at XLA's backend optimization level 1: a third of
+    # the default level's compile CPU, the same variables bit for bit
+    init = jax.jit(lambda k: jmodel.init(k, jnp.zeros((1, 264, 264, 3)), train=False))
+    key = jax.random.PRNGKey(0)
+    variables = init.lower(key).compile(compiler_options={"xla_backend_optimization_level": 1})(key)
     x = np.random.default_rng(9).uniform(0, 1, (2, 264, 264, 3)).astype(np.float32)
-    want = np.asarray(jmodel.apply(variables, jnp.asarray(x), train=False, use_batch_stats=False))
+    forward = jax.jit(lambda v, images: jmodel.apply(v, images, train=False, use_batch_stats=False))
+    want = np.asarray(forward(variables, jnp.asarray(x)))
     model = SSD(num_classes=21)
     model.load_state_dict(ssd_state_dict_from_jax_variables(jax.tree.map(np.asarray, variables)))
     with torch.inference_mode():

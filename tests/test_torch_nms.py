@@ -308,10 +308,11 @@ def _kernel_model_keep_sorted(sorted_boxes, sorted_valid, thresh, tile=64):
     for img in range(n):
         iou = nms.pairwise_iou(sorted_boxes[img], sorted_boxes[img])  # (P, P), earlier candidate first
         idx = torch.arange(p)
-        over = (iou > thresh) & (idx[:, None] < idx[None, :])
-        words = [[sum(1 << c for c in range(min(tile, p - cb * tile)) if over[i, cb * tile + c])
+        over = ((iou > thresh) & (idx[:, None] < idx[None, :])).tolist()  # Python bools: no tensor indexing
+        valid_row = sorted_valid[img].tolist()
+        words = [[sum(1 << c for c in range(min(tile, p - cb * tile)) if over[i][cb * tile + c])
                   for cb in range(nb)] for i in range(p)]
-        valid = [sum(1 << c for c in range(min(tile, p - cb * tile)) if sorted_valid[img, cb * tile + c])
+        valid = [sum(1 << c for c in range(min(tile, p - cb * tile)) if valid_row[cb * tile + c])
                  for cb in range(nb)]
         removed = [0] * nb
         for cb in range(nb):

@@ -447,10 +447,13 @@ def full():
     return model, jax_variables_from_state_dict(model.state_dict()), imgs
 
 
+@pytest.mark.slow
 def test_full_int8_tracks_float(full):
     """calibrate_full gives the 28 amaxes; the full-int8 output (trunk,
     extras, heads) tracks the float output, cosine > 0.95 (the JAX
-    package's threshold; random weights are the worst case)."""
+    package's threshold; random weights are the worst case). Port only:
+    marked slow, chip_smoke.py's phase_moved_training holds it on the
+    card."""
     model, _, imgs = full
     qd = pq.calibrate_full(model, [imgs])
     assert set(qd) == {f"amax_{layer}" for layer in pq.FULL_QUANT_LAYERS} and all(v > 0 for v in qd.values())

@@ -2,7 +2,10 @@
 the kernels as `torch.library` custom ops (ops/registry.py), and the exported
 pipeline (serving.py): reload parity with the live pipeline, the ragged mask,
 float16 rows, the metadata, the NMS tiers as `torch.cond`, a load that imports
-no model code, and the inference CLI's `--export_pipeline`."""
+no model code, and the inference CLI's `--export_pipeline`. The export tests,
+port against port at full width, are marked `slow`: chip_smoke.py's
+`phase_moved_serving` holds each at its pins on the card (`python -m pytest -m
+slow tests/test_torch_serving.py` runs them here)."""
 
 import json
 import subprocess
@@ -121,6 +124,7 @@ def exported(tmp_path_factory):
     return path, meta, live, images
 
 
+@pytest.mark.slow
 @pytest.mark.parametrize("n_real", [2, 1])
 def test_reload_matches_the_live_pipeline(exported, n_real):
     """The reloaded program's packed rows and n_valid equal the live
@@ -136,6 +140,7 @@ def test_reload_matches_the_live_pipeline(exported, n_real):
         assert (scores[1] == 0).all() and (classes[1] == 0).all() and int(n_valid[1]) == 0
 
 
+@pytest.mark.slow
 def test_metadata_and_graph(exported):
     """The calling contract in <path>.json; the program holds both kernels as
     custom ops and the NMS tiers as torch.cond; a platform the artifact does
@@ -161,6 +166,7 @@ def test_metadata_and_graph(exported):
         load_detection_pipeline(path, device="meta")
 
 
+@pytest.mark.slow
 def test_d2h_half_export_matches_the_live_pipeline(tmp_path, exported):
     """float16 rows: the exported program equals the live d2h_half pipeline
     and is the float32 rows rounded to nearest even."""
@@ -186,6 +192,7 @@ def test_export_refusals(tmp_path):
             load_detection_pipeline(tmp_path / "x.bin")
 
 
+@pytest.mark.slow
 def test_load_imports_no_model_code(exported):
     """A fresh interpreter loads and runs the artifact with the op
     registrations alone: no module of the port's models is imported. It runs
@@ -209,6 +216,7 @@ def test_load_imports_no_model_code(exported):
     np.testing.assert_array_equal(np.load(path.parent / "packed.npy"), live(images, 2)[0].numpy())
 
 
+@pytest.mark.slow
 def test_inference_cli_exports_the_pipeline(tmp_path):
     """`cli.inference --export_pipeline --export_platforms cpu`: the seeded
     SSD's pipeline at the CLI's batch size, equal to its live pipeline."""

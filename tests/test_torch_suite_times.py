@@ -70,3 +70,26 @@ def test_report_names_the_file_that_ended_last(tmp_path, capsys):
     lines = capsys.readouterr().out.splitlines()
     assert "gw0: ends at 14 s: test_a.py@0, test_b.py@2, test_c.py@12" in lines  # 13.5 s
     assert lines[-1] == "ended last: test_c.py on gw0, start 12 s, end 14 s"
+
+
+def test_report_counts_the_files_dealt_before_the_critical_path(tmp_path, capsys):
+    """The line before the last: the files xdist's loadfile scheduler deals
+    before the critical-path file (more tests, or as many and earlier in
+    path order), their count and summed busy seconds; --critical names
+    another file."""
+    st = _suite_times()
+    (tmp_path / "junit.xml").write_text(JUNIT)
+    (tmp_path / "log.txt").write_text(LOG)
+    st.report(tmp_path / "junit.xml", tmp_path / "log.txt")
+    lines = capsys.readouterr().out.splitlines()
+    assert lines[-2] == "dealt before test_b.py (1 tests): 1 files, busy 5 s: test_a.py (2)"
+    st.report(tmp_path / "junit.xml", tmp_path / "log.txt", critical="test_c.py")
+    lines = capsys.readouterr().out.splitlines()
+    assert lines[-2] == "dealt before test_c.py (1 tests): 2 files, busy 12 s: test_a.py (2), test_b.py (1)"
+    assert lines[-1] == "ended last: test_b.py on gw1, start 0 s, end 8 s"
+    (tmp_path / "log.txt").write_text(LOG + "tests/test_c.py::test_five\n")  # started, then cut
+    assert st.test_counts(tmp_path / "log.txt") == {"test_a.py": 2, "test_b.py": 1, "test_c.py": 2}
+    st.report(tmp_path / "junit.xml", tmp_path / "log.txt", critical="test_c.py")
+    assert capsys.readouterr().out.splitlines()[-2] == "dealt before test_c.py (2 tests): 1 files, busy 5 s: test_a.py (2)"
+    counts = {"test_x.py": 3, "test_p.py": 11, "test_a.py": 11, "test_t.py": 12}
+    assert st.dealt_before(counts, "test_p.py") == ["test_a.py", "test_t.py"]

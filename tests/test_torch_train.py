@@ -1,7 +1,9 @@
 """Port parity for the training slice: the rest of core/boxes.py, core/multibox.py,
 train/optimizer.py, train/state.py, train/trainer.py and the state converters
 of models/convert.py, against the reference goldens and the JAX package on the
-same numpy inputs (CPU)."""
+same numpy inputs (CPU). The Trainer's port-only equalities (K steps, zero
+gradients, uint8 input, eval_step) are marked `slow`: chip_smoke.py's
+`phase_moved_training` holds each at its pins on the card."""
 
 import jax
 import jax.numpy as jnp
@@ -124,8 +126,8 @@ def test_multibox_loss_and_gradient(goldens, batch):
     out = _t(g["outputs"]).requires_grad_(True)
     loss = multibox.multibox_loss(out, _t(g[tkey]), _t(df))
     loss.backward()
-    jloss, jgrad = jax.value_and_grad(jax_multibox.multibox_loss)(jnp.asarray(g["outputs"]),
-                                                                   jnp.asarray(g[tkey]), jnp.asarray(df))
+    jloss, jgrad = jax.jit(jax.value_and_grad(jax_multibox.multibox_loss))(jnp.asarray(g["outputs"]),
+                                                                            jnp.asarray(g[tkey]), jnp.asarray(df))
     np.testing.assert_allclose(loss.item(), float(g[lkey]), rtol=1e-5)
     np.testing.assert_allclose(loss.item(), float(jloss), rtol=1e-5)
     np.testing.assert_allclose(out.grad.numpy(), np.asarray(jgrad), rtol=1e-5, atol=1e-9)
@@ -146,7 +148,7 @@ def test_multibox_loss_many_gt_rows_matches_jax():
     outputs = rng.standard_normal((3, 8732, 25)).astype(np.float32)
     df = anchors.default_boxes()
     ours = multibox.multibox_loss(_t(outputs), _t(targets), _t(df))
-    ref = jax_multibox.multibox_loss(jnp.asarray(outputs), jnp.asarray(targets), jnp.asarray(df))
+    ref = jax.jit(jax_multibox.multibox_loss)(jnp.asarray(outputs), jnp.asarray(targets), jnp.asarray(df))
     np.testing.assert_allclose(float(ours), float(ref), rtol=1e-5)
 
 
@@ -192,10 +194,15 @@ def test_adam_state_carries_over_from_optax():
     grads = [jax.tree.map(lambda p: rng.standard_normal(p.shape).astype(np.float32) * 1e-2, params)
              for _ in range(4)]
     tx = _jax_tx()
+
+    def optax_step(g, opt, params):
+        updates, opt = tx.update(g, opt, params)
+        return optax.apply_updates(params, updates), opt
+
+    optax_step = jax.jit(optax_step)  # one program for the four steps, the trees passed as its arguments
     opt = tx.init(params)
     for g in grads[:3]:
-        updates, opt = tx.update(jax.tree.map(jnp.asarray, g), opt, params)
-        params = optax.apply_updates(params, updates)
+        params, opt = optax_step(jax.tree.map(jnp.asarray, g), opt, params)
 
     model = SSD()
     model.load_state_dict(ssd_state_dict_from_jax_variables(
@@ -208,8 +215,7 @@ def test_adam_state_carries_over_from_optax():
         state.optimizer.state_dict()["param_groups"]))
     assert state.optimizer.steps_taken() == 3
 
-    updates, opt = tx.update(jax.tree.map(jnp.asarray, grads[3]), opt, params)
-    params = optax.apply_updates(params, updates)
+    params, opt = optax_step(jax.tree.map(jnp.asarray, grads[3]), opt, params)
     state.apply_gradients([from_jax_layout(grads[3][jax_path(n)[0]][jax_path(n)[1]]) for n in state.trainable])
     assert state.optimizer.param_groups[0]["lr"] == schedule(3)
     ours = jax_tree(state.trainable)
@@ -237,6 +243,7 @@ def _trainer(seed=0, conv12_kernel=True):
     return trainer, state
 
 
+@pytest.mark.slow
 def test_train_steps_equals_single_steps():
     """A K = 3 call computes the same sequence as three single steps, bit for
     bit, and the frozen trunk is bit-unchanged while its statistics move."""
@@ -259,6 +266,7 @@ def test_train_steps_equals_single_steps():
     assert all(not torch.equal(b, stats0[name]) for name, b in s1.batch_stats.items())
 
 
+@pytest.mark.slow
 def test_zero_gradients_arrive_as_zeros():
     """An all-void batch gives a loss of exactly 0 and zero gradients. They
     reach Adam as zero tensors, not None, so every trainable parameter still
@@ -280,6 +288,7 @@ def test_zero_gradients_arrive_as_zeros():
         assert torch.equal(p, before[name]) != moves, name
 
 
+@pytest.mark.slow
 def test_uint8_and_float_inputs_take_the_same_step():
     """uint8 images are scaled by the float32 reciprocal of 255, as the JAX
     package's `/ 255.0` compiles."""
@@ -291,6 +300,7 @@ def test_uint8_and_float_inputs_take_the_same_step():
     assert torch.equal(a, b)
 
 
+@pytest.mark.slow
 def test_eval_step_updates_running_stats_only():
     """Reference validation (quirk Q9): no gradient, no parameter change,
     batch statistics, running statistics updated; the loss equals the one a

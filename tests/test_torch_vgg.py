@@ -2,7 +2,11 @@
 against the reference goldens and the JAX package: the forward golden
 (goldens/vgg_forward.npz) at the JAX tests' tolerances, the JAX `VGG16` on the
 same seeded inputs, `cross_entropy` against the Q2 golden, the converters and
-the weights file bit for bit both ways, and the dropout."""
+the weights file bit for bit both ways, and the dropout. The layout and
+dropout tests, port only at full width, are marked `slow`: chip_smoke.py's
+`phase_moved_training` holds them on the card."""
+
+import io
 
 import jax
 import jax.numpy as jnp
@@ -39,10 +43,19 @@ def _model(variables, **kwargs) -> VGG16:
 @pytest.fixture(scope="module")
 def golden(goldens):
     """(golden, its reference-layout state_dict, the port's conversion of it,
-    the golden's images NHWC)."""
+    the golden's images NHWC, the port's VGG16 on those weights by
+    transfer_learning flag: each built once, the golden's cases share it)."""
     g = goldens("vgg_forward")
     sd = synth_state_dict_from_manifest(g["manifest_keys"], g["manifest_shapes"])
-    return g, sd, convert.vgg16_variables_from_torch(sd), torch.from_numpy(_nhwc(g["x"]))
+    variables = convert.vgg16_variables_from_torch(sd)
+    models = {}
+
+    def model_of(transfer: bool) -> VGG16:
+        if transfer not in models:
+            models[transfer] = _model(variables, transfer_learning=transfer)
+        return models[transfer]
+
+    return g, sd, variables, torch.from_numpy(_nhwc(g["x"])), model_of
 
 
 @pytest.mark.parametrize("transfer,use_batch_stats,key,atol", [
@@ -53,9 +66,9 @@ def golden(goldens):
 def test_forward_matches_golden(golden, transfer, use_batch_stats, key, atol):
     """The reference's logits at the JAX tests' tolerances (running statistics
     at atol 5e-2 on logits up to 2.7e4, batch statistics at 5e-3)."""
-    g, _, variables, x = golden
+    g, _, _, x, model_of = golden
     with torch.no_grad():
-        out = _model(variables, transfer_learning=transfer)(x, train=False, use_batch_stats=use_batch_stats)
+        out = model_of(transfer)(x, train=False, use_batch_stats=use_batch_stats)
     assert out.shape == (2, 20 if transfer else 1000) and out.dtype == torch.float32
     np.testing.assert_allclose(out.numpy(), g[key], atol=atol)
 
@@ -63,13 +76,16 @@ def test_forward_matches_golden(golden, transfer, use_batch_stats, key, atol):
 def test_forward_matches_jax_vgg16(goldens):
     """The JAX VGG16 and the port's on the same seeded weights (the
     trajectory golden's kaiming-scaled recipe) and images at imsize 200,
-    batch 2, float32, batch statistics: rtol 1e-4, atol 1e-4."""
+    batch 2, float32, batch statistics: rtol 1e-4, atol 1e-4. The JAX
+    forward is one jitted program, its arrays passed as its arguments."""
     g = goldens("vgg_trajectory")
     sd = synth_scaled_state_dict_from_manifest(g["manifest_keys"], g["manifest_shapes"])
     x = np.random.default_rng(200).uniform(0.0, 1.0, (2, 200, 200, 3)).astype(np.float32)
     jax_vars = jax.tree.map(jnp.asarray, jax_convert.vgg16_variables_from_torch(sd))
-    want, _ = JaxVGG16(num_classes=20, transfer_learning=True).apply(
-        jax_vars, jnp.asarray(x), train=False, use_batch_stats=True, mutable=["batch_stats"])
+    jmodel = JaxVGG16(num_classes=20, transfer_learning=True)
+    forward = jax.jit(lambda v, images: jmodel.apply(v, images, train=False, use_batch_stats=True,
+                                                     mutable=["batch_stats"])[0])
+    want = forward(jax_vars, jnp.asarray(x))
     with torch.no_grad():
         got = _model(convert.vgg16_variables_from_torch(sd), transfer_learning=True)(
             torch.from_numpy(x), train=False, use_batch_stats=True)
@@ -99,18 +115,22 @@ def _leaves(tree, prefix=""):
 
 
 def _assert_trees_bit_equal(a, b):
+    """Same paths, dtypes, shapes and bytes (a byte compare: the 0.4 GB
+    leaves compare in memcmp time; numpy's report only if they differ)."""
     la, lb = dict(_leaves(a)), dict(_leaves(b))
     assert la.keys() == lb.keys()
     for k in la:
         assert la[k].dtype == lb[k].dtype and la[k].shape == lb[k].shape, k
-        np.testing.assert_array_equal(la[k], lb[k], err_msg=k)
+        if la[k].tobytes() != lb[k].tobytes():
+            np.testing.assert_array_equal(la[k], lb[k], err_msg=k)
+            raise AssertionError(f"{k}: equal values, other bits (-0.0 or a NaN payload)")
 
 
 def test_converters_bit_equal_to_jax(golden):
     """`vgg16_sequential_index_map` and `vgg16_variables_from_torch` give the
     JAX package's, bit for bit, on one reference state_dict; the port's
     state_dict round-trips through the JAX layout exactly."""
-    _, sd, got, _ = golden
+    _, sd, got, _, _ = golden
     assert convert.vgg16_sequential_index_map() == jax_convert.vgg16_sequential_index_map()
     want = jax_convert.vgg16_variables_from_torch(sd)
     _assert_trees_bit_equal(got, want)
@@ -125,25 +145,68 @@ def test_converters_bit_equal_to_jax(golden):
         convert.jax_variables_from_vgg16_state_dict({k: v for k, v in port_sd.items() if "classifier2" not in k})
 
 
-def test_weights_file_byte_identical_both_ways(tmp_path):
+class _MemoryFile(io.BytesIO):
+    """`open` for a module under test: files kept in `files`, by path."""
+
+    files: dict = {}
+
+    def __init__(self, path, mode="r", *args, **kwargs):
+        self.path, self.mode = str(path), mode
+        super().__init__(b"" if "w" in mode else self.files[self.path])
+
+    def close(self):
+        if "w" in self.mode and not self.closed:
+            self.files[self.path] = self.getvalue()
+        super().close()
+
+
+def test_weights_file_byte_identical_both_ways(tmp_path, monkeypatch):
     """A VGG16's weights file: the port's save_weights writes the bytes the
     JAX package's save_weights writes for the same variables (so the JAX
     package loads it as its own), and the port loads the JAX package's file
-    back to the model's state_dict bit for bit."""
+    back to the model's state_dict bit for bit. Both packages' save_weights
+    and the port's load_weights run whole, their files (1.03 GB each) in
+    memory: `open` and the port's rename are replaced in their modules (the
+    disk writes themselves are held byte for byte on the SSD's weights by
+    tests/test_torch_checkpoint.py)."""
+    files = {}
+    monkeypatch.setattr(_MemoryFile, "files", files)
+    for module in (jax_ckpt, ckpt):
+        monkeypatch.setattr(module, "open", _MemoryFile, raising=False)
+    monkeypatch.setattr(ckpt.os, "replace", lambda src, dst: files.__setitem__(str(dst), files.pop(str(src))))
     model = VGG16(num_classes=20, seed=3)
     jax_ckpt.save_weights(tmp_path / "jax.msgpack", convert.jax_variables_of(model))
     ckpt.save_weights(tmp_path / "port.msgpack", model)
-    assert (tmp_path / "port.msgpack").read_bytes() == (tmp_path / "jax.msgpack").read_bytes()
+    assert sorted(files) == [str(tmp_path / "jax.msgpack"), str(tmp_path / "port.msgpack")]
+    assert files[str(tmp_path / "port.msgpack")] == files[str(tmp_path / "jax.msgpack")]
     back = convert.vgg16_state_dict_from_jax_variables(ckpt.load_weights(tmp_path / "jax.msgpack"))
     for k, v in model.state_dict().items():
         assert torch.equal(back[k], v), k
-    for name in ("jax.msgpack", "port.msgpack"):  # 1.03 GB each: not kept in the temporary directory
-        (tmp_path / name).unlink()
+    assert not any(tmp_path.iterdir())
 
 
+def test_seeded_init_without_the_default_init_is_bit_equal(monkeypatch):
+    """The convolutions and linears are built without torch's default init,
+    which the seeded draws overwrite: the state_dict equals the one built
+    with the default init first (the oracle, as the model was built before),
+    bit for bit, and torch's global generator is left as it was."""
+    from object_detection_torch2_tpu_torch.models import vgg16 as vgg_module
+
+    rng = torch.get_rng_state()
+    got = VGG16(num_classes=20, seed=5).state_dict()
+    assert torch.equal(torch.get_rng_state(), rng)
+    monkeypatch.setattr(vgg_module, "skip_init", lambda cls, *args, **kwargs: cls(*args, **kwargs))
+    want = VGG16(num_classes=20, seed=5).state_dict()
+    assert list(got) == list(want)
+    for k in want:
+        assert got[k].dtype == want[k].dtype and torch.equal(got[k], want[k]), k
+
+
+@pytest.mark.slow
 def test_state_dict_layout_and_heads():
     """Both heads are in the state_dict, named as the JAX package's layers;
-    only the selected head runs."""
+    only the selected head runs. Port only, at full width: marked slow,
+    chip_smoke.py's phase_moved_training holds it on the card."""
     model = VGG16(num_classes=20, transfer_learning=True, dropout_rate=0.0)
     names = list(model.state_dict())
     assert names[:7] == ["features.conv_1_1.weight", "features.conv_1_1.bias", "features.bn_1_1.weight",
@@ -169,10 +232,12 @@ def test_trainable_predicate_matches_jax(transfer):
     assert len(got) == 64 - 6 and not any(n.startswith(dead) for n in got)
 
 
+@pytest.mark.slow
 def test_dropout_draws_from_its_generator():
     """Keep with probability 1 - p, kept values scaled by 1 / (1 - p); the
     same generator state gives the same mask; a training forward without a
-    generator raises."""
+    generator raises. Port only, at full width: marked slow,
+    chip_smoke.py's phase_moved_training holds it on the card."""
     x = torch.ones(64, 4096)
     a = dropout(x, 0.5, torch.Generator().manual_seed(1))
     b = dropout(x, 0.5, torch.Generator().manual_seed(1))
