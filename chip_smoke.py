@@ -207,7 +207,13 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    without augment under cuDNN's deterministic algorithms, the full-int8
    accuracy at 264, the training CLI's kill-and-resume, --steps_per_dispatch
    2 and classification purpose); their launches go into the kernels line;
-22. each phase's wall seconds (`phase seconds: {...}`), the kernels line
+22. the benchmark tools at smoke size (`phase_bench_tools`):
+   `tools/bench_layers.py` in bfloat16 at batch 2, 2 iterations (every
+   prefix captured in a CUDA graph, its replay bit-equal to an eager call,
+   finite positive times in both columns,
+   the marginals summing to the forward, conv12 launched) and
+   `tools/bench_loader.py` over 64 records (its line well formed);
+23. each phase's wall seconds (`phase seconds: {...}`), the kernels line
    (JSON; launches summed over the paths that ran each
    kernel, by path, the data-parallel paths' summed over ranks), then the last line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -3913,6 +3919,63 @@ def phase_moved_training(card: str) -> dict:
     return res
 
 
+BENCH_LAYERS_SMOKE = ["--batch_size", "2", "--iters", "2", "--dtype", "bfloat16"]
+BENCH_LOADER_SMOKE = ["--count", "64"]
+BENCH_LOADER_KEYS = {"images", "seconds", "img_per_s", "image_mb_per_s", "h2d_mb_per_s", "bytes_per_batch",
+                     "count", "batch_size", "epochs", "device", "card"}
+
+
+def phase_bench_tools(card: str) -> dict:
+    """The benchmark tools (object_detection_torch2_tpu_torch/tools/) at smoke
+    size through their `main`, the launch counts set to 0 just before:
+    `bench_layers` in bfloat16 at batch 2, 2 iterations (every prefix
+    captured in a CUDA graph and its replay's output bit-equal to an eager
+    call's, every cumulative time finite and positive in both columns, the
+    graph marginals summing to the graph forward, the conv12 kernel
+    launched) and `bench_loader` over 64 records (its line
+    well formed, every image fed). The phase's conv12_bf16 launches go into
+    the kernels line."""
+    from object_detection_torch2_tpu_torch.tools import bench_layers, bench_loader
+    from object_detection_torch2_tpu_torch.tools.common import launch_counts
+
+    t0 = time.perf_counter()
+    reset_launches()
+    layers = bench_layers.main(BENCH_LAYERS_SMOKE)
+    launches = launch_counts()
+    rows = layers["layers"]
+    if layers["capture_failures"]:
+        raise AssertionError(f"bench_layers: prefixes not captured: {layers['capture_failures']}")
+    cumulative = [v for r in rows for v in (r["cumulative_ms"], r["eager_cumulative_ms"])]
+    if not all(v is not None and np.isfinite(v) and v > 0 for v in cumulative):
+        raise AssertionError(f"bench_layers: cumulative times {cumulative}")
+    if abs(layers["marginals_sum_ms"] - layers["forward_ms"]) > 1e-9 * max(layers["forward_ms"], 1.0):
+        raise AssertionError(f"bench_layers: marginals sum to {layers['marginals_sum_ms']} ms, "
+                             f"forward {layers['forward_ms']} ms")
+    if launches["conv12_bf16"] == 0 or layers["conv12_launches"] != launches["conv12_bf16"]:
+        raise AssertionError(f"bench_layers: conv12 launches {launches}, its record's {layers['conv12_launches']}")
+    if len(rows) != len(bench_layers.PREFIXES) or layers["card"] != card:
+        raise AssertionError(f"bench_layers: {len(rows)} rows, card {layers['card']!r}")
+    worst = max(layers["graph_vs_eager_max_abs"].values())
+    if worst != 0.0:  # a replay computes what an eager call does, bit for bit
+        raise AssertionError(f"bench_layers: graph against eager outputs {layers['graph_vs_eager_max_abs']}")
+    t1 = time.perf_counter()
+    loader = bench_loader.main(BENCH_LOADER_SMOKE)
+    fed = 64 // 32 * 32 * 3  # the timed epochs' images at the default batch size
+    if not BENCH_LOADER_KEYS <= set(loader) or loader["images"] != fed or not loader["img_per_s"] > 0 \
+            or loader["card"] != card:
+        raise AssertionError(f"bench_loader: {loader}")
+    res = {"layers_forward_ms": layers["forward_ms"], "layers_forward_eager_ms": layers["forward_eager_ms"],
+           "graph_vs_eager_max_abs": worst, "launches": launches, "loader_img_per_s": loader["img_per_s"],
+           "layers_s": t1 - t0, "loader_s": time.perf_counter() - t1, "phase_s": time.perf_counter() - t0}
+    print(f"bench tools (smoke size): bench_layers {len(rows)} prefixes captured, forward graph "
+          f"{layers['forward_ms']:.3f} ms / eager {layers['forward_eager_ms']:.3f} ms at batch 2, graph against "
+          f"eager max |d| {worst:.3g}, conv12 launches {launches['conv12_bf16']}, {res['layers_s']:.1f} s; "
+          f"bench_loader {loader['img_per_s']:.0f} img/s, {res['loader_s']:.1f} s; phase {res['phase_s']:.1f} s "
+          f"({card})")
+    torch.cuda.empty_cache()
+    return res
+
+
 def proof_launches(proofs: dict) -> dict:
     """Each kernel's launches over the four proofs' smoke runs."""
     from object_detection_torch2_tpu_torch.tools.common import KERNELS
@@ -4128,6 +4191,10 @@ def main(argv=None) -> int:
                            (entries[3], "quantize_act")):
             entry["launches_by_path"][path] = moved[key]
             entry["launches"] += moved[key]
+    results["bench_tools"] = timed(phase_bench_tools, card)
+    n = results["bench_tools"]["launches"]["conv12_bf16"]
+    entries[1]["bfloat16"]["launches_by_path"]["bench_tools"] = n
+    entries[1]["bfloat16"]["launches"] += n
     cls = results["cls_trajectory"]["launches"]  # VGG16 runs on cuDNN: none of these kernels
     for entry, key in ((entries[0], "nms_keep_sorted"), (entries[1], "conv12"), (entries[1]["bfloat16"], "conv12_bf16"),
                        (entries[2], "int8_conv"), (entries[3], "quantize_act")):
