@@ -115,8 +115,14 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    tests/test_torch_cls_trajectory.py (marked slow on the CPU): per-step
    loss drift < 1e-2, step 0 < 1e-4, step-0 gradients, final parameters and
    BN statistics within their fingerprint budgets, the dead head
-   bit-unchanged, the eval forward after training; its launch counts (0:
-   VGG16 runs on cuDNN) go into the kernels line;
+   bit-unchanged, the eval forward after training, and a second replay
+   bit-equal to the first in losses and trainable parameters; its launch
+   counts (0: VGG16 runs no kernel of the port) go into the kernels line;
+   then float32 fidelity (`phase_float32_fidelity`): the VGG16 golden
+   forward (tests/goldens/vgg_forward.npz) at tests/test_torch_vgg.py's
+   atols, and the evaluate and inference CLIs as 2 gloo ranks against one
+   process at tests/test_torch_parallel_cli.py's pins (the evaluate test's
+   batch statistics excepted: read, kept on the CPU);
 15. device cache: the training CLI with `--device_cache` against streaming
    (bfloat16, 2 epochs, --orbax_dir): losses and weights file bit-equal; H2D
    bytes a step and img/s;
@@ -226,6 +232,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import statistics
 import struct
 import subprocess
@@ -234,6 +241,7 @@ import tempfile
 import time
 import warnings
 import zlib
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -335,6 +343,33 @@ def time_ms(fn, reps: int, trials: int = 5, warmup: int = 2) -> float:
     return statistics.median(means)
 
 
+HOST_THREADS = min(8, os.cpu_count() or 1)  # numpy's draws and dots release the GIL
+
+
+def synth_array(key: str, shape: tuple) -> np.ndarray:
+    """The 0.05-normal weight recipe behind goldens/vgg_forward.npz (the JAX
+    package's utils/testing.py): BN scales and running variances near 1,
+    everything else 0.05-scale normal noise, each tensor from a numpy
+    generator seeded by its state_dict key."""
+    rng = np.random.default_rng(zlib.crc32(key.encode()) & 0xFFFFFFFF)
+    shape = tuple(int(s) for s in shape)
+    if key.endswith("num_batches_tracked"):
+        return np.zeros(shape, np.int64)
+    if key.endswith("running_var"):
+        return (1.0 + 0.05 * np.abs(rng.standard_normal(shape))).astype(np.float32)
+    if key.endswith(".weight") and len(shape) == 1:
+        return (1.0 + 0.05 * rng.standard_normal(shape)).astype(np.float32)
+    return (0.05 * rng.standard_normal(shape)).astype(np.float32)
+
+
+def synth_state_dict(shapes: dict, recipe) -> dict:
+    """{key: recipe(key, shape)} for a {key: shape} manifest, the tensors
+    drawn in HOST_THREADS threads: each key seeds its own generator, so the
+    values are those of a serial draw."""
+    with ThreadPoolExecutor(HOST_THREADS) as pool:
+        return dict(zip(shapes, pool.map(recipe, shapes, shapes.values())))
+
+
 def synth_array_scaled(key: str, shape: tuple) -> np.ndarray:
     """The deterministic weight recipe behind the pinned forward golden (the
     JAX package's utils/testing.py, which this script may not import):
@@ -399,19 +434,31 @@ def fingerprint_tree(tree: dict, k: int = 8):
 def fingerprint_trees(*trees, k: int = 8) -> list:
     """`fingerprint_tree` of each {layer: {leaf: array}} tree, each seeded
     direction drawn once for every tree that holds its path (one draw of
-    ~134 M values a direction for VGG16)."""
+    ~134 M values a direction for VGG16), the (path, direction) pairs in
+    HOST_THREADS threads, largest first: each direction has its own seed, so
+    the rows are those of a serial pass."""
     flats = [{f"{layer}/{leaf}": np.asarray(t[layer][leaf], np.float64).ravel() for layer in t for leaf in t[layer]}
              for t in trees]
+    paths = sorted(set().union(*flats))
+    held = {path: [(i, f[path]) for i, f in enumerate(flats) if path in f] for path in paths}
+
+    def project(task):
+        path, j = task
+        v = np.random.default_rng(zlib.crc32(f"fp:{path}:{j}".encode()) & 0xFFFFFFFF).standard_normal(held[path][0][1].size)
+        v /= np.sqrt(np.dot(v, v))
+        return [np.dot(a, v) for _, a in held[path]]
+
+    def moments(path):
+        return [[np.sqrt(np.dot(a, a)), a.mean(), np.abs(a).max()] for _, a in held[path]]
+
+    tasks = sorted(((path, j) for path in paths for j in range(k)), key=lambda t: -held[t[0]][0][1].size)
+    with ThreadPoolExecutor(HOST_THREADS) as pool:
+        proj = dict(zip(tasks, pool.map(project, tasks)))
+        stats = dict(zip(paths, pool.map(moments, paths)))
     rows = [{} for _ in flats]
-    for path in sorted(set().union(*flats)):
-        held = [(i, f[path]) for i, f in enumerate(flats) if path in f]
-        for i, a in held:
-            rows[i][path] = [np.sqrt(np.dot(a, a)), a.mean(), np.abs(a).max()]
-        for j in range(k):
-            v = np.random.default_rng(zlib.crc32(f"fp:{path}:{j}".encode()) & 0xFFFFFFFF).standard_normal(held[0][1].size)
-            v /= np.sqrt(np.dot(v, v))
-            for i, a in held:
-                rows[i][path].append(np.dot(a, v))
+    for path in paths:
+        for n, (i, _) in enumerate(held[path]):
+            rows[i][path] = stats[path][n] + [proj[(path, j)][n] for j in range(k)]
     return [(np.array(sorted(r)), np.array([r[path] for path in sorted(r)], np.float64)) for r in rows]
 
 
@@ -420,7 +467,7 @@ def phase_reference(card: str) -> dict:
     from object_detection_torch2_tpu_torch.models.ssd import SSD
 
     g = np.load(GOLDEN)
-    sd = ssd_state_dict_from_torch({k: synth_array_scaled(k, s) for k, s in ssd_state_shapes(21).items()})
+    sd = ssd_state_dict_from_torch(synth_state_dict(ssd_state_shapes(21), synth_array_scaled))
     x = torch.from_numpy(np.ascontiguousarray(np.transpose(g["x"], (0, 2, 3, 1)))).to(DEVICE)
     res = {}
     for dtype in (torch.float32, torch.bfloat16):
@@ -880,7 +927,6 @@ def conv12_bound(shape, dtype) -> dict:
 
 
 def compare_conv12(shape, dtype, seed: int, timed: bool) -> dict:
-    from object_detection_torch2_tpu_torch import true_float32
     from object_detection_torch2_tpu_torch.ops import conv12_cuda
     from object_detection_torch2_tpu_torch.ops.conv12 import conv12_plain
 
@@ -898,7 +944,8 @@ def compare_conv12(shape, dtype, seed: int, timed: bool) -> dict:
         r["kernel_ms"] = time_ms(lambda: conv12_cuda.conv12_cuda(x, w, b), reps=5)
         r["plain_ms"] = time_ms(lambda: conv12_plain(x, w, b), reps=3)
         bl = b.to(dtype)
-        with true_float32():
+        # cuDNN in true float32 (or bfloat16): the library call the kernel is held against
+        with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=False, allow_tf32=False):
             r["library_ms"] = time_ms(lambda: F.conv2d(x, w, bl, padding=1), reps=5)
         r.update(conv12_bound(shape, dtype))
     return r
@@ -966,8 +1013,8 @@ def replay_trajectory(golden: Path, dtype, test_checks: bool = False) -> dict:
 
     g = np.load(golden)
     steps, spe, bs = int(g["steps"]), int(g["steps_per_epoch"]), int(g["bs"])
-    sd = ssd_state_dict_from_torch({k: synth_array_scaled(k, shape) for k, shape in
-                                    unpack_manifest(g["manifest_keys"], g["manifest_shapes"]).items()})
+    sd = ssd_state_dict_from_torch(synth_state_dict(unpack_manifest(g["manifest_keys"], g["manifest_shapes"]),
+                                                    synth_array_scaled))
     trainer = Trainer(SSD(num_classes=21, dtype=dtype, conv12_kernel=True), default_boxes=default_boxes())
     schedule = exponential_epoch_schedule(float(g["lr"]), float(g["gamma"]), spe)
     state = trainer.init_state(lambda ps: adam_torch(ps, schedule, weight_decay=float(g["weight_decay"])),
@@ -978,7 +1025,7 @@ def replay_trajectory(golden: Path, dtype, test_checks: bool = False) -> dict:
     if test_checks:
         images0, targets0 = trainer._inputs(*synth_trajectory_batch(0, n=bs))
         state.model.eval()
-        with true_float32():
+        with true_float32(dtype):
             loss0 = trainer._loss(state.model(images0.permute(0, 2, 3, 1).contiguous(), use_batch_stats=True),
                                   targets0)
             grads0 = torch.autograd.grad(loss0, list(state.trainable.values()))
@@ -1142,7 +1189,7 @@ def step_breakdown(state, default_boxes_t, images, targets, reps: int = 3) -> di
     for _ in range(reps):
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
         state.model.train()
-        with true_float32():
+        with true_float32(state.model.dtype):
             ev[0].record()
             out = state.model(x, use_batch_stats=True)
             ev[1].record()
@@ -1630,39 +1677,24 @@ def synth_cls_trajectory_batch(step: int, n: int = 4, imsize: int = 200, num_cla
     return images, np.eye(num_classes, dtype=np.float32)[rng.integers(0, num_classes, n)]
 
 
-def phase_cls_trajectory(card: str) -> dict:
-    """The reference's 20-step VGG16 classification run
-    (tests/goldens/vgg_trajectory.npz: batch 4, imsize 200, full width, Adam
-    over the trunk and the 20-way head, dropout 0) replayed on the card in
-    float32 through `Trainer(loss_kind="cross_entropy")`, to the pins of
-    tests/test_torch_cls_trajectory.py (its CPU replay is marked slow):
-    per-step loss drift < 1e-2 and step 0 < 1e-4, the learning rates, the
-    step-0 gradients (conv biases left out) within 5e-3 of max(L2, 1e-4),
-    every parameter within 5e-3 * L2 + 1e-2 with the dead 1000-way head
-    bit-unchanged and without Adam moments, the BN statistics within 0.1 *
-    L2 + 0.1, the eval forward after training max |d| < 0.1 and mean < 0.04.
-    VGG16's convolutions are cuDNN's: the path runs none of the port's
-    kernels, and its launch counts (0) are read around the replay."""
-    from object_detection_torch2_tpu_torch.models.convert import (
-        jax_tree,
-        vgg16_state_dict_from_jax_variables,
-        vgg16_variables_from_torch,
-    )
+def cls_replay(g, variables: dict) -> dict:
+    """One float32 replay of the classification trajectory golden `g` from
+    the JAX-layout `variables`: a fresh VGG16, Trainer and Adam, the golden's
+    20 batches; the losses, the state, the step-0 gradients, the dead head
+    before the run, the schedule, the replay's seconds and the launch counts
+    around it."""
+    from object_detection_torch2_tpu_torch.models.convert import vgg16_state_dict_from_jax_variables
     from object_detection_torch2_tpu_torch.models.vgg16 import VGG16, vgg_trainable_predicate
     from object_detection_torch2_tpu_torch.tools.common import launch_counts
     from object_detection_torch2_tpu_torch.train.optimizer import adam_torch, exponential_epoch_schedule
     from object_detection_torch2_tpu_torch.train.trainer import Trainer
 
-    t_phase = time.perf_counter()
-    g = np.load(CLS_TRAJECTORY)
     steps, spe, bs, imsize = int(g["steps"]), int(g["steps_per_epoch"]), int(g["bs"]), int(g["imsize"])
-    sd = {k: synth_array_scaled(k, shape) for k, shape in
-          unpack_manifest(g["manifest_keys"], g["manifest_shapes"]).items()}
     trainer = Trainer(VGG16(num_classes=20, transfer_learning=True, dropout_rate=0.0), loss_kind="cross_entropy")
     schedule = exponential_epoch_schedule(float(g["lr"]), float(g["gamma"]), spe)
     state = trainer.init_state(lambda ps: adam_torch(ps, schedule, weight_decay=float(g["weight_decay"])),
                                is_trainable=vgg_trainable_predicate(True),
-                               state_dict=vgg16_state_dict_from_jax_variables(vgg16_variables_from_torch(sd)))
+                               state_dict=vgg16_state_dict_from_jax_variables(variables))
     dead0 = {k: v.clone() for k, v in state.frozen.items()}
     grads0 = {}
     apply = state.apply_gradients
@@ -1681,9 +1713,44 @@ def phase_cls_trajectory(card: str) -> dict:
         images, targets = synth_cls_trajectory_batch(step, n=bs, imsize=imsize)
         losses.append(float(trainer.train_step(state, np.ascontiguousarray(images.transpose(0, 2, 3, 1)), targets)))
     torch.cuda.synchronize()
-    replay_s = time.perf_counter() - t0
-    launches = launch_counts()
+    return {"losses": losses, "state": state, "grads0": grads0, "dead0": dead0, "schedule": schedule,
+            "replay_s": time.perf_counter() - t0, "launches": launch_counts()}
 
+
+def phase_cls_trajectory(card: str) -> dict:
+    """The reference's 20-step VGG16 classification run
+    (tests/goldens/vgg_trajectory.npz: batch 4, imsize 200, full width, Adam
+    over the trunk and the 20-way head, dropout 0) replayed on the card in
+    float32 through `Trainer(loss_kind="cross_entropy")`, to the pins of
+    tests/test_torch_cls_trajectory.py (its CPU replay is marked slow):
+    per-step loss drift < 1e-2 and step 0 < 1e-4, the learning rates, the
+    step-0 gradients (conv biases left out) within 5e-3 of max(L2, 1e-4),
+    every parameter within 5e-3 * L2 + 1e-2 with the dead 1000-way head
+    bit-unchanged and without Adam moments, the BN statistics within 0.1 *
+    L2 + 0.1, the eval forward after training max |d| < 0.1 and mean < 0.04.
+    The replay runs twice from the same weights: the two runs' losses and
+    trainable parameters must be bit-equal (the float32 policy of
+    `true_float32`). VGG16's float32 convolutions are PyTorch's own CUDA
+    ones: the path runs none of the port's kernels, and its launch counts
+    (0) are read around the replay."""
+    from object_detection_torch2_tpu_torch.models.convert import jax_tree, vgg16_variables_from_torch
+
+    t_phase = time.perf_counter()
+    g = np.load(CLS_TRAJECTORY)
+    steps, bs, imsize = int(g["steps"]), int(g["bs"]), int(g["imsize"])
+    variables = vgg16_variables_from_torch(synth_state_dict(
+        unpack_manifest(g["manifest_keys"], g["manifest_shapes"]), synth_array_scaled))
+    setup_s = time.perf_counter() - t_phase
+    run = cls_replay(g, variables)
+    losses, state, grads0, dead0, schedule = (run[k] for k in ("losses", "state", "grads0", "dead0", "schedule"))
+    replay_s, launches = run["replay_s"], run["launches"]
+    again = cls_replay(g, variables)
+    params_equal = all(torch.equal(p, again["state"].trainable[k]) for k, p in state.trainable.items())
+    if again["losses"] != losses or not params_equal:
+        raise AssertionError(f"cls replay not bit-equal to itself: losses equal {again['losses'] == losses}, "
+                             f"trainable parameters equal {params_equal}")
+    del again
+    torch.cuda.empty_cache()
     ref = g["losses"]
     drift = np.abs(np.array(losses) - ref) / np.maximum(np.abs(ref), 1e-9)
     if not (drift.max() < 1e-2 and drift[0] < 1e-4):
@@ -1693,8 +1760,10 @@ def phase_cls_trajectory(card: str) -> dict:
     np.testing.assert_allclose(lrs, g["lrs"], rtol=1e-12)
     assert state.optimizer.steps_taken() == state.step == steps
 
+    t_fp = time.perf_counter()
     fps = dict(zip(("grads", "params", "stats"), fingerprint_trees(
         jax_tree(grads0), jax_tree(dict(state.model.named_parameters())), jax_tree(state.batch_stats))))
+    fingerprint_s = time.perf_counter() - t_fp
 
     def delta(name, fp_key):
         keys, fp = fps[name]
@@ -1727,16 +1796,208 @@ def phase_cls_trajectory(card: str) -> dict:
         raise AssertionError(f"cls eval-after max |d| {d.max():.2e} (1e-1), mean {d.mean():.2e} (4e-2)")
     phase_s = time.perf_counter() - t_phase
     print(f"classification trajectory replay float32, VGG16 imsize {imsize} bs{bs}: {steps} steps in "
-          f"{replay_s:.2f} s (the phase {phase_s:.1f} s), loss drift max {drift.max():.2e} (pin 1e-2), step 0 {drift[0]:.2e} (pin 1e-4), "
+          f"{replay_s:.2f} s (the phase {phase_s:.1f} s, its weights {setup_s:.1f} s, its fingerprints "
+          f"{fingerprint_s:.1f} s), a second replay bit-equal in losses and trainable parameters, "
+          f"loss drift max {drift.max():.2e} (pin 1e-2), step 0 {drift[0]:.2e} (pin 1e-4), "
           f"step-0 gradients {grad_rel:.2e} (pin 5e-3), parameter budget use {param_use:.3f}, BN statistics "
           f"budget use {stats_use:.3f}, dead head bit-unchanged, eval forward max |d| {d.max():.2e} (pin 1e-1) "
           f"mean {d.mean():.2e} (pin 4e-2); launches {launches} ({card})")
-    del trainer, state, out
+    del run, state, out
     torch.cuda.empty_cache()
-    return {"steps": steps, "replay_s": replay_s, "phase_s": phase_s, "losses": losses, "loss_drift_max": float(drift.max()),
+    return {"steps": steps, "replay_s": replay_s, "phase_s": phase_s, "setup_s": setup_s,
+            "fingerprint_s": fingerprint_s, "replays_bit_equal": True, "losses": losses,
+            "loss_drift_max": float(drift.max()),
             "loss_drift_step0": float(drift[0]), "grad_rel_max": grad_rel, "param_budget_use": param_use,
             "bn_budget_use": stats_use, "eval_fwd_maxabs": float(d.max()), "eval_fwd_mean": float(d.mean()),
             "launches": launches}
+
+
+VGG_FORWARD = ROOT / "tests" / "goldens" / "vgg_forward.npz"
+# tests/test_torch_vgg.py::test_forward_matches_golden's cases:
+# (transfer_learning, use_batch_stats, the golden's key, atol)
+VGG_GOLDEN_CASES = ((False, False, "out_eval", 5e-2), (True, False, "out_transfer", 5e-2),
+                    (False, True, "out_bn_batch", 5e-3))
+# tests/test_torch_parallel_cli.py's serving runs: 5 records at imsize 264, batch 4
+FIDELITY_ARGV = ["--imsize", "264", "--batch_size", "4", "--dtype", "float32", "--num_workers", "0"]
+FIDELITY_G_PAD = 8
+# A rank of the serving CLIs' 2-rank runs: each (port, CLI, argv) of the JSON
+# list in argv[2] in turn under torchrun's environment, a fresh port each;
+# the evaluate runs' APs and the NMS launches go to the result file argv[1].
+FIDELITY_RANK = """
+import json, os, sys
+from object_detection_torch2_tpu_torch.cli import evaluate, inference
+from object_detection_torch2_tpu_torch.ops import nms_cuda
+nms_cuda.launches = 0
+out = []
+for port, cli, argv in json.loads(sys.argv[2]):
+    os.environ["MASTER_PORT"] = str(port)
+    got = (evaluate if cli == "evaluate" else inference).main(argv)
+    out.append([[float(a) for a in got[0]], got[1], got[2], [float(a) for a in got[3]]] if cli == "evaluate" else None)
+json.dump({"runs": out, "nms": nms_cuda.launches}, open(sys.argv[1], "w"))
+"""
+
+
+def vgg_golden_readings() -> list:
+    """tests/test_torch_vgg.py::test_forward_matches_golden's three cases on
+    the card: the port's VGG16 in float32 on the golden's weights (the
+    0.05-normal recipe) and images (batch 2, imsize 200) against the
+    reference's logits; each case's max |d|, its atol and whether
+    `np.testing.assert_allclose(atol=)` (rtol 1e-7) holds."""
+    from object_detection_torch2_tpu_torch.models.convert import (
+        vgg16_state_dict_from_jax_variables,
+        vgg16_variables_from_torch,
+    )
+    from object_detection_torch2_tpu_torch.models.vgg16 import VGG16
+
+    g = np.load(VGG_FORWARD)
+    sd = synth_state_dict(unpack_manifest(g["manifest_keys"], g["manifest_shapes"]), synth_array)
+    model = VGG16(num_classes=20)
+    model.load_state_dict(vgg16_state_dict_from_jax_variables(vgg16_variables_from_torch(sd)))
+    model = model.to(DEVICE).eval()
+    x = torch.from_numpy(np.ascontiguousarray(g["x"].transpose(0, 2, 3, 1))).to(DEVICE)
+    out = []
+    for transfer, batch_stats, key, atol in VGG_GOLDEN_CASES:
+        model.transfer_learning = transfer
+        with torch.no_grad():
+            y = model(x, train=False, use_batch_stats=batch_stats)
+        assert tuple(y.shape) == (2, 20 if transfer else 1000) and y.dtype == torch.float32, (y.shape, y.dtype)
+        d = np.abs(y.cpu().numpy().astype(np.float64) - g[key])
+        out.append({"key": key, "max_abs": float(d.max()), "atol": atol,
+                    "over": int((d > atol + 1e-7 * np.abs(g[key])).sum()), "of": int(d.size)})
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def fidelity_records(tmp: Path, bn_mode: str) -> Path:
+    """tests/test_torch_parallel_cli.py's 5 records: the fixture's four
+    photographs and the first one mirrored at imsize 264, ground truth on
+    the seeded float32 SSD's top-3 detections on the card (with batch
+    statistics, as the CLI serves by default and the test plants them, or
+    with running statistics), 8 rows an image."""
+    from object_detection_torch2_tpu_torch.data.voc import PascalVOCDataset
+    from object_detection_torch2_tpu_torch.infer import Predictor
+    from object_detection_torch2_tpu_torch.models.ssd import SSD
+
+    ds = PascalVOCDataset("detection", [FIXTURE], "test.txt", MOVED_IMSIZE)
+    images = np.stack([ds[i][0] for i in range(4)] + [ds[0][0][:, ::-1]])
+    dets = Predictor(SSD(num_classes=21, seed=0), imsize=MOVED_IMSIZE, batch_size=4,
+                     use_batch_stats=bn_mode == "batch", device=DEVICE).predict(images)
+    write_records(tmp / f"records_{bn_mode}", images, plant_gts(dets)[:, :FIDELITY_G_PAD])
+    return tmp / f"records_{bn_mode}"
+
+
+def png_differences(one: Path, two: Path) -> list:
+    """(name, share of pixels that differ) of each PNG of run `one`, against
+    the same name in run `two`; the two runs must write the same names."""
+    from object_detection_torch2_tpu_torch.utils.render import require_pil
+
+    Image, _ = require_pil()
+    names = sorted(p.name for p in one.glob("*.png"))
+    if names != [f"{i:06}.png" for i in range(1, 6)] or sorted(p.name for p in two.glob("*.png")) != names:
+        raise AssertionError(f"PNGs {names} against {sorted(p.name for p in two.glob('*.png'))}")
+    out = []
+    for name in names:
+        got, want = (np.asarray(Image.open(d / name)) for d in (two, one))
+        if got.shape != want.shape:
+            raise AssertionError(f"{name}: shape {got.shape} against {want.shape}")
+        out.append((name, float((got != want).any(axis=-1).mean())))
+    return out
+
+
+def float32_cli_readings(tmp: Path, also=None) -> dict:
+    """tests/test_torch_parallel_cli.py's serving comparisons on the card,
+    float32: `cli.evaluate --strict_ap` and `cli.inference`, each with
+    running and with batch statistics, as one process and as 2 gloo ranks
+    on the card (`--distributed --dist_backend gloo`, torchrun's
+    environment: a rank's slice of the last batch is empty), over
+    `fidelity_records` (the evaluate runs' ground truth planted with the
+    run's statistics). By statistics: the evaluate runs' per-class parity
+    and strict APs and their means, each PNG's share of differing pixels;
+    and the NMS launches of the runs (this process's and the ranks'). The
+    one-process runs, and `also()` if given (its result under "also"), run
+    while the ranks do."""
+    from object_detection_torch2_tpu_torch.cli import evaluate, inference
+    from object_detection_torch2_tpu_torch.ops import nms_cuda
+
+    modes = ("running", "batch")
+    records = {mode: fidelity_records(tmp, mode) for mode in modes}
+    argv = FIDELITY_ARGV + ["--records_dir", str(records["batch"])]
+    evals_argv = {mode: FIDELITY_ARGV + ["--records_dir", str(records[mode]), "--strict_ap", "--bn_mode", mode]
+                  for mode in modes}
+    runs = []
+    for mode in modes:
+        runs += [(free_port(), "evaluate", evals_argv[mode] + ["--result_dir", str(tmp / f"eval_{mode}_two")]),
+                 (free_port(), "inference", argv + ["--bn_mode", mode, "--result_dir", str(tmp / f"{mode}_two")])]
+    runs = [(port, cli, a + ["--distributed", "--dist_backend", "gloo"]) for port, cli, a in runs]
+
+    def one_process():
+        nms_cuda.launches = 0
+        one = {}
+        for mode in modes:
+            got = evaluate.main(evals_argv[mode] + ["--result_dir", str(tmp / f"eval_{mode}_one")])
+            one[mode] = [[float(a) for a in got[0]], got[1], got[2], [float(a) for a in got[3]]]
+            inference.main(argv + ["--bn_mode", mode, "--result_dir", str(tmp / f"{mode}_one")])
+        return one, nms_cuda.launches, also() if also is not None else None
+
+    ranks, (one, launches, also_out) = run_ranks(FIDELITY_RANK, [json.dumps(runs)], DP_WORLD, tmp, work=one_process)
+    evals = {mode: {"one": one[mode], "two": ranks[0]["runs"][2 * i],
+                    "ranks_agree": all(same_aps(r["runs"][2 * i], ranks[0]["runs"][2 * i]) for r in ranks)}
+             for i, mode in enumerate(modes)}
+    pngs = {mode: png_differences(tmp / f"{mode}_one" / "detection", tmp / f"{mode}_two" / "detection")
+            for mode in modes}
+    return {"evaluate": evals, "pngs": pngs, "nms_launches": launches + sum(r["nms"] for r in ranks), "also": also_out}
+
+
+def same_aps(a, b) -> bool:
+    """Two evaluate results (parity APs, mean, strict mean, strict APs)
+    equal, NaN to NaN, as np.testing.assert_array_equal holds them."""
+    return all(np.array_equal(np.asarray(x, np.float64), np.asarray(y, np.float64), equal_nan=True)
+               for x, y in zip(a, b, strict=True))
+
+
+def phase_float32_fidelity(card: str) -> dict:
+    """The port's float32 on the card (the float32 convolution policy of
+    `true_float32`: no cuDNN) held to the CPU tests' own pins:
+    - tests/test_torch_vgg.py::test_forward_matches_golden's three cases at
+      atol 5e-2, 5e-2 and 5e-3 (`vgg_golden_readings`);
+    - tests/test_torch_parallel_cli.py's inference test on 2 gloo ranks
+      against one process: with running statistics every PNG pixel-equal,
+      with batch statistics under 0.1% of an image's pixels apart;
+    - the evaluate CLI on 2 ranks with running statistics, where no sum
+      crosses the ranks: the one process's per-class parity and strict APs
+      and their means exactly, parity mAP 1.0.
+    Not held on the card, and kept on the CPU as it is: the evaluate test
+    itself, with batch statistics, whose moments the ranks sum in another
+    order than one process; its reading is printed. The NMS launches of
+    every run go into the kernels line."""
+    with tempfile.TemporaryDirectory() as tmp:
+        cli = float32_cli_readings(Path(tmp), also=vgg_golden_readings)
+    golden = cli["also"]
+    for r in golden:
+        if r["over"]:
+            raise AssertionError(f"VGG16 golden forward {r['key']}: max |d| {r['max_abs']:.4g} against atol "
+                                 f"{r['atol']}, {r['over']} of {r['of']} logits over")
+    ev = cli["evaluate"]["running"]
+    if not (ev["ranks_agree"] and same_aps(ev["two"], ev["one"]) and ev["one"][1] == 1.0):
+        raise AssertionError(f"evaluate CLI (running statistics), 2 ranks against one process: parity APs "
+                             f"{ev['two'][0]} against {ev['one'][0]}, strict {ev['two'][3]} against {ev['one'][3]}, "
+                             f"means {ev['two'][1:3]} against {ev['one'][1:3]} (exact; planted ground truth: 1.0)")
+    shares = {mode: max(share for _, share in cli["pngs"][mode]) for mode in ("running", "batch")}
+    if shares["running"] > 0 or shares["batch"] >= 1e-3:
+        raise AssertionError(f"inference CLI, 2 ranks against one process: PNG pixel shares {cli['pngs']} "
+                             "(pins: running statistics equal, batch statistics < 0.1%)")
+    kept = cli["evaluate"]["batch"]
+    print(f"float32 fidelity ({card}): VGG16 golden forward max |d| "
+          + ", ".join(f"{r['key']} {r['max_abs']:.4g} (atol {r['atol']})" for r in golden)
+          + f" (run while the ranks ran); 2 gloo ranks against one process: inference PNGs pixel-equal with running "
+          f"statistics, largest share apart {shares['batch']:.2e} with batch statistics (pin < 1e-3); evaluate "
+          f"with running statistics every class's APs exact (parity {ev['one'][1]}, strict {ev['one'][2]:.6f}); "
+          f"NMS launches {cli['nms_launches']}. Kept on the CPU: the evaluate test with batch statistics, here "
+          f"{'exact' if same_aps(kept['one'], kept['two']) else 'not exact'}: parity mAP {kept['two'][1]} against "
+          f"{kept['one'][1]}, strict {kept['two'][2]:.6f} against {kept['one'][2]:.6f}")
+    return {"golden": golden, "evaluate": cli["evaluate"], "pngs": cli["pngs"],
+            "launches": {"nms_keep_sorted": cli["nms_launches"]}}
 
 
 def phase_device_cache_cli(card: str) -> dict:
@@ -2473,20 +2734,24 @@ json.dump({"mean_ap": mean_ap, "strict_ap": strict_ap, "aps": [float(a) for a in
 """
 
 
-def run_ranks(script: str, argv: list, world: int, tmp: Path) -> list:
-    """`python -c script <result file> argv...` as `world` processes with
-    torchrun's environment (one host, the one card), as torchrun starts
-    them; every rank's JSON result. A rank that fails ends the others and
-    raises with its error output."""
-    import os
-
+def start_ranks(script: str, argv: list, world: int, tmp: Path) -> list:
+    """Start `python -c script <result file> argv...` as `world` processes
+    with torchrun's environment (one host, the one card), as torchrun starts
+    them; `join_ranks` waits for them. The caller may work meanwhile: the
+    ranks' start-up (~10 s) overlaps it."""
     port = free_port()
-    procs, logs = [], [tmp / f"rank{rank}.log" for rank in range(world)]
+    procs = []
     for rank in range(world):
-        with open(logs[rank], "w") as log:
+        with open(tmp / f"rank{rank}.log", "w") as log:
             procs.append(subprocess.Popen([sys.executable, "-c", script, str(tmp / f"rank{rank}.json"), *argv],
                                           cwd=ROOT, env={**os.environ, **torchrun_env(rank, world, port)},
                                           stdout=log, stderr=subprocess.STDOUT))
+    return procs
+
+
+def join_ranks(procs: list, tmp: Path) -> list:
+    """Every rank's JSON result, once all have ended. A rank that fails ends
+    the others and raises with its error output."""
     deadline = time.monotonic() + DP_RANK_TIMEOUT
     try:
         while any(p.poll() is None for p in procs) and time.monotonic() < deadline:
@@ -2501,8 +2766,23 @@ def run_ranks(script: str, argv: list, world: int, tmp: Path) -> list:
     bad = [r for r, p in enumerate(procs) if p.returncode != 0]
     if bad:
         raise AssertionError(f"rank(s) {bad} failed, were ended or timed out:\n"
-                             + "".join(f"--- rank {r}:\n{logs[r].read_text()[-3000:]}" for r in bad))
-    return [json.loads((tmp / f"rank{r}.json").read_text()) for r in range(world)]
+                             + "".join(f"--- rank {r}:\n{(tmp / f'rank{r}.log').read_text()[-3000:]}" for r in bad))
+    return [json.loads((tmp / f"rank{r}.json").read_text()) for r in range(len(procs))]
+
+
+def run_ranks(script: str, argv: list, world: int, tmp: Path, work=None) -> tuple:
+    """`start_ranks`, then `work()` in this process while the ranks run,
+    then `join_ranks`: (every rank's JSON result, work's result). If work
+    raises, the ranks are ended."""
+    procs = start_ranks(script, argv, world, tmp)
+    try:
+        out = work() if work is not None else None
+    except BaseException:
+        for p in procs:
+            p.kill()
+            p.wait()
+        raise
+    return join_ranks(procs, tmp), out
 
 
 def dp_nccl_world1(card: str, tmp: Path) -> dict:
@@ -2692,22 +2972,25 @@ def dp_gloo_evaluate(card: str, tmp: Path) -> dict:
     res = {}
     for case, dtype, bn_mode, flags in (("float32", "float32", "batch", []),
                                         ("trunk_int8", "bfloat16", "running", ["--trunk_int8"])):
-        result = tmp / f"eval_{case}"
+        # one result directory for the one process and one for the ranks, which run at the same time
+        results = [tmp / f"eval_{case}", tmp / f"eval_{case}_ranks"]
         model = SSD(num_classes=21, dtype=getattr(torch, dtype), seed=0)
         if flags:
             scales = quant.calibrate_trunk(model.to(DEVICE), [images[:BATCH]], use_batch_stats=False, margin=1.25)
-            (result / "detection").mkdir(parents=True)
-            quant.save_quant(result / "detection" / "quant.json", scales)
+            for result in results:
+                (result / "detection").mkdir(parents=True)
+                quant.save_quant(result / "detection" / "quant.json", scales)
             model.set_quant(scales)
             model.trunk_int8 = True
         gts = plant_gts(Predictor(model, imsize=IMSIZE, batch_size=BATCH, use_batch_stats=bn_mode == "batch")
                         .predict(images))
         write_records(tmp / f"records_{case}", images, gts)
-        argv = ["--records_dir", str(tmp / f"records_{case}"), "--result_dir", str(result), "--batch_size", str(BATCH),
-                "--imsize", str(IMSIZE), "--dtype", dtype, "--bn_mode", bn_mode, "--strict_ap", *flags]
-        single = evaluate.main(argv)
+        argv = ["--records_dir", str(tmp / f"records_{case}"), "--batch_size", str(BATCH), "--imsize", str(IMSIZE),
+                "--dtype", dtype, "--bn_mode", bn_mode, "--strict_ap", *flags]
         t0 = time.perf_counter()
-        ranks = run_ranks(DP_EVAL_RANK, argv + ["--distributed", "--dist_backend", "gloo"], DP_WORLD, tmp)
+        ranks, single = run_ranks(DP_EVAL_RANK, argv + ["--result_dir", str(results[1]), "--distributed",
+                                                        "--dist_backend", "gloo"], DP_WORLD, tmp,
+                                  work=lambda: evaluate.main(argv + ["--result_dir", str(results[0])]))
         wall_s = time.perf_counter() - t0
         for r, got in enumerate(ranks):
             if got["mean_ap"] != single[1] or not abs(single[1] - 1.0) <= 1e-6:
@@ -2770,7 +3053,7 @@ def dp_ranks_run(mesh) -> dict:
     buffers = {k: v.detach().clone() for k, v in state.model.state_dict().items()}
     x, y = trainer._inputs(images, targets)
     state.model.train()
-    with true_float32():
+    with true_float32(state.model.dtype):
         loss = trainer._loss(trainer._forward(state.model, x), y)
         grads = torch.autograd.grad(loss, list(state.trainable.values()), materialize_grads=True)
     if mesh is not None:
@@ -4142,6 +4425,10 @@ def main(argv=None) -> int:
     results["train_cli"] = timed(phase_train_cli, card)
     results["classification_cli"] = timed(phase_classification_cli, card)
     results["cls_trajectory"] = timed(phase_cls_trajectory, card)
+    results["float32_fidelity"] = timed(phase_float32_fidelity, card)
+    n = results["float32_fidelity"]["launches"]["nms_keep_sorted"]
+    entries[0]["launches_by_path"]["float32_fidelity"] = n
+    entries[0]["launches"] += n
     results["device_cache_cli"] = timed(phase_device_cache_cli, card)
     entries.append(conv12_entry(results["conv12_vs_plain"], results["training"], results["train_cli"],
                                 results["trajectory"], results["device_cache_cli"]))
@@ -4195,7 +4482,7 @@ def main(argv=None) -> int:
     n = results["bench_tools"]["launches"]["conv12_bf16"]
     entries[1]["bfloat16"]["launches_by_path"]["bench_tools"] = n
     entries[1]["bfloat16"]["launches"] += n
-    cls = results["cls_trajectory"]["launches"]  # VGG16 runs on cuDNN: none of these kernels
+    cls = results["cls_trajectory"]["launches"]  # VGG16 runs none of these kernels
     for entry, key in ((entries[0], "nms_keep_sorted"), (entries[1], "conv12"), (entries[1]["bfloat16"], "conv12_bf16"),
                        (entries[2], "int8_conv"), (entries[3], "quantize_act")):
         entry["launches_by_path"]["cls_trajectory"] = cls[key]

@@ -311,7 +311,9 @@ def _main(args, mesh) -> dict:
                           num_workers=args.num_workers, stack_steps=args.steps_per_dispatch, **cache)
     dl_val = (DataLoader(ds_val, args.batch_size, max_gt=args.max_gt, mesh=mesh, num_workers=args.num_workers,
                          **cache) if ds_val else None)
-    # an exact resume on the card needs cuDNN's deterministic algorithms
+    # an exact resume on the card needs deterministic convolutions: in
+    # bfloat16 cuDNN's deterministic algorithms; a float32 step runs off cuDNN
+    # (the policy of `true_float32`), where the flag changes nothing
     deterministic = torch.backends.cudnn.deterministic
     if args.orbax_dir:
         torch.backends.cudnn.deterministic = True

@@ -20,9 +20,11 @@ activations are NCHW tensors in the channels_last memory format (the
 permuted NHWC input already has those strides), which cuDNN runs natively.
 
 Numerics: convs run in `dtype` (float32 or bfloat16), BatchNorm math in
-float32. In float32 the convs run in true f32, as the JAX package's
-`precision=HIGHEST` does: the forward switches cuDNN's TF32 off
-(`true_float32`), and `Trainer` takes its gradients inside the same context.
+float32. The forward runs under `true_float32(dtype)`, and `Trainer` takes
+its gradients inside the same context: in float32 the convs run in true f32,
+as the JAX package's `precision=HIGHEST` does, off cuDNN (the port's float32
+convolution policy: PyTorch's own CUDA convolutions, whose sums do not
+depend on the batch's split); in bfloat16 on cuDNN.
 `dtype=torch.float64` is an exact reference on the CPU (convs, BatchNorm and
 the output in float64; the parameters stay float32): the extras' float32
 gradients move by up to tens of percent with the reduction order of the
@@ -301,14 +303,20 @@ class SSD(nn.Module):
                         stride=conv.stride, padding=conv.padding)
 
     def _conv12(self, conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
-        # the kernel takes channels_last only and never copies; the BN+ReLU
-        # output is channels_last already, so this is a no-op on the main path
-        x = x.contiguous(memory_format=torch.channels_last)
-        return conv12(x, conv.weight.to(self.dtype), conv.bias, out_dtype=self.dtype)
+        # the kernel takes channels_last only and never copies; its output
+        # goes back to x's layout, so that the layers after it run as they do
+        # without the kernel. In bfloat16 (cuDNN) x is channels_last already
+        # and nothing is copied; in float32 the policy's convolutions give
+        # contiguous NCHW.
+        layout = (torch.channels_last if x.is_contiguous(memory_format=torch.channels_last)
+                  else torch.contiguous_format)
+        y = conv12(x.contiguous(memory_format=torch.channels_last), conv.weight.to(self.dtype), conv.bias,
+                   out_dtype=self.dtype)
+        return y.contiguous(memory_format=layout)
 
     def forward(self, x: torch.Tensor, use_batch_stats: bool = True,
                 batch_mask: torch.Tensor | None = None, up_to: str | None = None) -> torch.Tensor:
-        with true_float32():
+        with true_float32(self.dtype):
             return self._forward(x, use_batch_stats, batch_mask, up_to)
 
     def _forward(self, x, use_batch_stats, batch_mask, up_to):

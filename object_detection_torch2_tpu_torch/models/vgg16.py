@@ -23,13 +23,15 @@ the JAX package's: the frameworks' generators differ.
 
 Numerics, as `SSD`'s: convolutions and linears run in `dtype` (float32 in
 true float32, TF32 off, as `precision=HIGHEST`), BatchNorm math in float32,
-the logits come out in float32. Convolutions and linears run on cuDNN and
-cuBLAS on the card: the JAX VGG16 runs no Pallas kernel. Activations are
-channels_last on the card, where cuDNN runs that layout natively, and
+the logits come out in float32. The forward runs under `true_float32(dtype)`:
+on the card float32 convolutions are PyTorch's own (im2col and cuBLAS, the
+port's float32 policy), bfloat16 ones cuDNN's, and linears cuBLAS's: the JAX
+VGG16 runs no Pallas kernel. The input is channels_last on the card and
 contiguous NCHW on the CPU, the layout of the reference's torch run, whose
 sums oneDNN's NCHW kernels take in the same order: under the golden's
 weights the eval logits (up to 2.7e4) differ from it by 0.031 (8 float32
-ulps) in NCHW and by 0.066 in channels_last (tests/test_torch_vgg.py).
+ulps) in NCHW and by 0.066 in channels_last (tests/test_torch_vgg.py); on
+the card by 0.040 under the policy and 0.061 on cuDNN (PERF.md).
 
 Quirk Q10: the heads expect a 7x7x512 grid (Linear(512*7*7, 4096)), but with
 the padded pools no standard imsize gives 7x7 (300 gives 10x10, 224 gives
@@ -149,7 +151,7 @@ class VGG16(nn.Module):
         drop = train and self.dropout_rate > 0.0
         if drop and generator is None:
             raise ValueError("a training forward with dropout needs a generator")
-        with true_float32():
+        with true_float32(self.dtype):
             n = x.shape[0]
             mesh = self.mesh
             rows = () if mesh is None else (n * mesh.world, n * mesh.rank)

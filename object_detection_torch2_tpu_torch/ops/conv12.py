@@ -33,7 +33,7 @@ def conv12_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                  out_dtype: torch.dtype | None = None) -> torch.Tensor:
     """x (N, C, H, W), w (C, C, 3, 3), b (C,) -> (N, C, H, W) in `out_dtype`
     (default x's type): F.conv2d in float32 (TF32 off), + b in float32, cast."""
-    with true_float32():
+    with true_float32(torch.float32):
         y = F.conv2d(x.float(), w.float(), None, padding=1)
     return (y + b.float()[None, :, None, None]).to(out_dtype or x.dtype)
 
@@ -52,7 +52,7 @@ def conv12_backward(ctx, g):
     gx = gw = gb = None
     gf = g.float()
     if need_x or need_w:
-        with true_float32():
+        with true_float32(torch.float32):
             gxf, gwf, _ = torch.ops.aten.convolution_backward(gf, x.float(), w.float(), None, [1, 1], [1, 1], [1, 1],
                                                               False, [0, 0], 1, [need_x, need_w, False])
         gx = gxf.to(x.dtype) if need_x else None

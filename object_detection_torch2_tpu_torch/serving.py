@@ -24,8 +24,9 @@ run the CUDA kernel through the registered op; the NMS tier is a
 Limits, as the JAX package's: a fixed batch size (a ragged tail is masked by
 n_real, as in the live pipeline) and one device per artifact run. A program
 runs only on the platform it was traced on; loading it for another raises.
-float32 convolutions run in true float32 (TF32 off) when the artifact runs,
-as in the live pipeline.
+The artifact runs under `true_float32` of its convolutions' dtype
+(`conv_dtype`, read from the program's graph), as the live pipeline does:
+float32 convolutions off cuDNN, in true float32.
 """
 
 from __future__ import annotations
@@ -81,7 +82,7 @@ def export_detection_pipeline(model, path, *, batch_size: int, use_batch_stats: 
                                  d2h_half).to(device)
         args = (torch.zeros((batch_size, imsize, imsize, 3), dtype=torch.uint8, device=device),
                 torch.tensor(batch_size, dtype=torch.int64, device=device))
-        with torch.no_grad(), true_float32():
+        with torch.no_grad(), true_float32(model.dtype):
             exported = torch.export.export(pipe, args)
         buf = io.BytesIO()
         torch.export.save(exported, buf)
@@ -109,6 +110,13 @@ def export_detection_pipeline(model, path, *, batch_size: int, use_batch_stats: 
     return meta
 
 
+def conv_dtype(program) -> torch.dtype | None:
+    """The widest dtype an exported program's convolutions run in (None
+    without one): what its runs hand `true_float32`."""
+    dtypes = {n.meta["val"].dtype for n in program.graph.nodes if n.target is torch.ops.aten.conv2d.default}
+    return max(dtypes, key=lambda d: d.itemsize, default=None)
+
+
 def load_detection_pipeline(path, device=None):
     """An exported pipeline -> (run, metadata). run(images_u8, n_real) takes
     host arrays or tensors and returns (packed, n_valid) on the device.
@@ -128,11 +136,12 @@ def load_detection_pipeline(path, device=None):
             raise ValueError(f"{path} holds programs for {sorted(n[:-4] for n in names)}, not {device.type}")
         exported = torch.export.load(io.BytesIO(zf.read(member)))
     module = exported.module()
+    dtype = conv_dtype(exported)
 
     def run(images_u8, n_real):
         images_u8 = torch.as_tensor(images_u8).to(device)
         n_real = torch.as_tensor(n_real, dtype=torch.int64).to(device)
-        with torch.no_grad(), true_float32():
+        with torch.no_grad(), true_float32(dtype):
             return module(images_u8, n_real)
 
     return run, meta

@@ -32,8 +32,10 @@ but never calls `net.eval()` (reference: src/train.py:127-139), so BatchNorm
 uses batch statistics AND keeps updating its running statistics (quirk Q9).
 `eval_step` does exactly that: the model stays in training mode.
 
-float32 convolutions run in true float32 in the forward and the backward
-(`true_float32`), as the JAX package's `precision=HIGHEST` does.
+A step's forward and backward run under `true_float32` of the model's
+dtype: float32 convolutions in true float32, as the JAX package's
+`precision=HIGHEST` does, off cuDNN (the port's float32 convolution policy,
+object_detection_torch2_tpu_torch/__init__.py); bfloat16 ones on cuDNN.
 
 Int8 trunk (`quant=`, models/quant.py): an `SSD(trunk_int8=True)` needs its
 calibrated scales {amax_<layer>: float}; they are checked
@@ -226,7 +228,7 @@ class Trainer:
         images, targets = self._inputs(images, targets, step_generator(self.seed, state.step))
         state.model.train()
         params = list(state.trainable.values())
-        with true_float32():
+        with true_float32(state.model.dtype):
             loss = self._loss(self._forward(state.model, images, state.step), targets)
             # zeros, not None, for a parameter the loss does not reach
             grads = torch.autograd.grad(loss, params, materialize_grads=True)

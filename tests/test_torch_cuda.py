@@ -703,3 +703,64 @@ def test_gloo_two_ranks_on_one_card_equal_one_process(card):
     for key, value in one["params"].items():
         assert torch.equal(ranks[0]["params"][key], ranks[1]["params"][key]), key
         np.testing.assert_allclose(ranks[0]["params"][key].numpy(), value.numpy(), rtol=1e-4, atol=4e-6, err_msg=key)
+
+
+@pytest.fixture(scope="module")
+def vgg_golden(card):
+    """(golden, its images NHWC on the card, the port's float32 VGG16 on the
+    golden's weights on the card): tests/test_torch_vgg.py's golden forward,
+    its weights drawn with chip_smoke.py's copy of the recipe (this file
+    imports nothing of the JAX package)."""
+    from pathlib import Path
+
+    import chip_smoke
+    from object_detection_torch2_tpu_torch.models.convert import (
+        vgg16_state_dict_from_jax_variables,
+        vgg16_variables_from_torch,
+    )
+    from object_detection_torch2_tpu_torch.models.vgg16 import VGG16
+
+    g = np.load(Path(__file__).parent / "goldens" / "vgg_forward.npz")
+    sd = chip_smoke.synth_state_dict(chip_smoke.unpack_manifest(g["manifest_keys"], g["manifest_shapes"]),
+                                     chip_smoke.synth_array)
+    model = VGG16(num_classes=20)
+    model.load_state_dict(vgg16_state_dict_from_jax_variables(vgg16_variables_from_torch(sd)))
+    x = torch.from_numpy(np.ascontiguousarray(g["x"].transpose(0, 2, 3, 1))).to(card)
+    return g, x, model.to(card).eval()
+
+
+@pytest.mark.parametrize("transfer,use_batch_stats,key,atol", [
+    (False, False, "out_eval", 5e-2),
+    (True, False, "out_transfer", 5e-2),
+    (False, True, "out_bn_batch", 5e-3),
+])
+def test_vgg16_forward_matches_golden_on_the_card(vgg_golden, transfer, use_batch_stats, key, atol):
+    """tests/test_torch_vgg.py::test_forward_matches_golden on the card, at
+    its atols: the float32 policy of `true_float32` (no cuDNN) rounds as the
+    reference's direct sums do."""
+    g, x, model = vgg_golden
+    model.transfer_learning = transfer
+    with torch.no_grad():
+        out = model(x, train=False, use_batch_stats=use_batch_stats)
+    assert out.shape == (2, 20 if transfer else 1000) and out.dtype == torch.float32
+    np.testing.assert_allclose(out.cpu().numpy(), g[key], atol=atol)
+
+
+def test_float32_ssd_rows_do_not_depend_on_the_batch_split(card):
+    """float32, running statistics: each image's SSD outputs at batch 4 are
+    bit-equal to its outputs in two batch-2 calls (what 2 serving ranks
+    compute), and the forward ran no cuDNN kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    model = SSD(num_classes=21, seed=0).to(card).eval()
+    images = torch.from_numpy(np.random.default_rng(3).integers(0, 256, (4, 300, 300, 3), dtype=np.uint8))
+    x = images.to(card).float() / 255.0
+    with torch.no_grad(), profile(activities=[ProfilerActivity.CUDA]) as prof:
+        whole = model(x, use_batch_stats=False)
+        halves = torch.cat([model(x[:2], use_batch_stats=False), model(x[2:], use_batch_stats=False)])
+        torch.cuda.synchronize()
+    assert torch.equal(whole, halves)
+    kernels = {e.name for e in prof.events() if e.device_type == DeviceType.CUDA}
+    cudnn = [k for k in kernels if any(m in k.lower() for m in ("cudnn", "fprop", "convolve", "fft", "winograd"))]
+    assert kernels and not cudnn, sorted(kernels)
