@@ -21,7 +21,15 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    on the card, on seeded clustered boxes at batch 32 and widths 128, 1024 and
    8732, dense and sparse: the keep masks must be identical; then at N = 256,
    P = 8732 through `keep_sorted` (the custom op): two slices of one mask
-   scratch, two launches, the plain sweep's keep mask;
+   scratch, two launches, the plain sweep's keep mask. Then the BatchNorm
+   moments kernel (csrc/bn_moments.cu) against `bn_moments_plain` at the
+   inputs of SSD300's 23 BatchNorms at batch 32 in bfloat16 and float32,
+   NCHW and channels_last, and in float64 at one small shape, seeded normal
+   values: each float64 sum within 1e-12 of its magnitude (sum |x|, sum
+   sq), the batch's rows bit-equal to those of its two halves, of its 32
+   single images and of a second call; at the main path's layouts its ms
+   beside the bytes bound, the plain version's, the moment chain's of
+   models/bn.py and the float32 means' chain that it replaced;
 5. serving main path: `Predictor(batch_size=32)` on 70 seeded uint8 images
    (two full batches and a ragged one) at imsize 300 with seeded weights, in
    float32 and bfloat16. The NMS launch count is reset just before and read
@@ -121,8 +129,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    then float32 fidelity (`phase_float32_fidelity`): the VGG16 golden
    forward (tests/goldens/vgg_forward.npz) at tests/test_torch_vgg.py's
    atols, and the evaluate and inference CLIs as 2 gloo ranks against one
-   process at tests/test_torch_parallel_cli.py's pins (the evaluate test's
-   batch statistics excepted: read, kept on the CPU);
+   process at tests/test_torch_parallel_cli.py's pins, with batch and with
+   running statistics: every PNG pixel-equal, every AP exact;
 15. device cache: the training CLI with `--device_cache` against streaming
    (bfloat16, 2 epochs, --orbax_dir): losses and weights file bit-equal; H2D
    bytes a step and img/s;
@@ -171,8 +179,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    environment over 70 records at batch 32 (rank 1's last slice empty),
    float32 with batch statistics and `--trunk_int8` in bfloat16 with running
    statistics, each on ground truth planted on that model's own detections:
-   parity mAP 1.0 on both ranks as in one process, 3 NMS launches a rank and
-   33 of each int8 kernel a rank with --trunk_int8. Then the slow tests of
+   parity mAP 1.0 on both ranks as in one process (with batch statistics
+   the strict mAP too), 3 NMS launches a rank, 69 of the BatchNorm moments
+   kernel a rank with batch statistics and 33 of each int8 kernel a rank
+   with --trunk_int8. Then the slow tests of
    tests/test_torch_parallel.py (`phase_parallel_ranks`): the SSD at imsize
    264, global batch 4, on 2 gloo ranks on the card against one process at
    the CPU tests' pins (float64 gradients and 2 SGD steps, an augmented
@@ -221,7 +231,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    `tools/bench_loader.py` over 64 records (its line well formed);
 23. each phase's wall seconds (`phase seconds: {...}`), the kernels line
    (JSON; launches summed over the paths that ran each
-   kernel, by path, the data-parallel paths' summed over ranks), then the last line
+   kernel, by path, the data-parallel paths' summed over ranks; the
+   BatchNorm moments kernel's by phase, its count set to 0 just before
+   each phase and read just after, the serving, evaluation and training
+   phases' above 0), then the last line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Imports nothing of JAX. Every time printed here was measured on the card in
@@ -540,7 +553,7 @@ def compare_sweep(sb, sv) -> dict:
     }
 
 
-def phase_kernel_vs_plain(card: str) -> list:
+def phase_kernel_vs_plain(card: str) -> dict:
     rng = np.random.default_rng(1234)
     rows = []
     for p in (128, 1024, 8732):
@@ -550,7 +563,147 @@ def phase_kernel_vs_plain(card: str) -> list:
             rows.append(r)
             print(f"nms_keep_sorted bs{BATCH} P={p} {r['case']}: identical to plain, kept {r['kept']}, "
                   f"kernel {r['kernel_ms']:.4f} ms, plain {r['plain_ms']:.3f} ms ({card})")
-    return rows
+    return {"nms": rows, "bn_moments": bn_moments_table(card)}
+
+
+def bn_input_shapes() -> list:
+    """(layer, (N, C, H, W)) of the input of each of SSD300's 23 BatchNorms
+    (its conv's output) at BATCH and IMSIZE, from models/ssd.py's
+    LAYER_SPECS."""
+    from object_detection_torch2_tpu_torch.models.ssd import LAYER_SPECS
+    from object_detection_torch2_tpu_torch.tools.bench_layers import layer_inputs
+
+    ins = layer_inputs(IMSIZE)
+    return [(s, (BATCH, cout, *((ins[s][i] + 2 * pad - k) // stride + 1 for i in (0, 1))))
+            for s, _, cout, k, stride, pad, _ in LAYER_SPECS]
+
+
+def bn_main_path_layouts() -> dict:
+    """{dtype name: {layer: layout code}} of each BatchNorm's input
+    (ops/bn_moments_cuda.py: 0 NCHW, 1 channels_last) in a training-mode
+    SSD300 forward with batch statistics on the card, conv12 kernel on."""
+    from object_detection_torch2_tpu_torch.models.bn import BatchNorm
+    from object_detection_torch2_tpu_torch.models.ssd import SSD
+    from object_detection_torch2_tpu_torch.ops.bn_moments_cuda import layout_code
+
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        model = SSD(num_classes=21, dtype=dtype, seed=0, conv12_kernel=True).to(DEVICE).train()
+        seen = {}
+        for name, m in model.features.named_children():
+            if isinstance(m, BatchNorm):
+                m.register_forward_pre_hook(lambda _, args, name=name: seen.__setitem__(name[3:], layout_code(args[0])))
+        with torch.no_grad():
+            model(torch.rand(2, IMSIZE, IMSIZE, 3, device=DEVICE), use_batch_stats=True)
+        out[str(dtype).removeprefix("torch.")] = seen
+        del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def float32_mean_chain(x: torch.Tensor):
+    """The batch moments as plain float32 means over (0, 2, 3) of x and of
+    its square, in one process (the yardstick of bn_moments_table)."""
+    xf = x if x.dtype == torch.float64 else x.float()
+    return xf.mean(dim=(0, 2, 3)), xf.square().mean(dim=(0, 2, 3))
+
+
+def moment_chain(x: torch.Tensor):
+    """The batch moments as models/bn.py takes them now, in one process: the
+    per-image rows, their sum over the images, the division, the float32
+    rounding."""
+    from object_detection_torch2_tpu_torch.ops.bn_moments import bn_moments
+
+    return (bn_moments(x).sum(dim=0) / float(x.numel() // x.shape[1])).float().unbind(0)
+
+
+def compare_bn_moments(x: torch.Tensor) -> dict:
+    """The kernel against `bn_moments_plain` on x: |kernel - plain| within
+    1e-12 of each sum's magnitude (sum |x|, sum sq), and the kernel's rows of
+    the batch bit-equal to those of its two halves, of its single images and
+    of a second call."""
+    from object_detection_torch2_tpu_torch.ops.bn_moments import bn_moments_plain
+    from object_detection_torch2_tpu_torch.ops.bn_moments_cuda import bn_moments_cuda
+
+    def bits(t):
+        return t.contiguous().view(torch.int64)
+
+    got, want = bn_moments_cuda(x), bn_moments_plain(x)
+    mag = torch.stack([x.abs().sum(dim=(2, 3), dtype=torch.float64), want[:, 1]], dim=1)
+    d = (got - want).abs()
+    within = bool((d <= 1e-12 * mag).all())
+    n = x.shape[0]
+    halves = torch.cat([bn_moments_cuda(x[:n // 2]), bn_moments_cuda(x[n // 2:])])
+    singles = torch.cat([bn_moments_cuda(x[i:i + 1]) for i in range(n)])
+    again = bn_moments_cuda(x)
+    torch.cuda.synchronize()
+    split = {"halves": torch.equal(bits(halves), bits(got)), "singles": torch.equal(bits(singles), bits(got)),
+             "again": torch.equal(bits(again), bits(got))}
+    rel = float((d / mag.clamp_min(torch.finfo(torch.float64).tiny)).max())
+    if not within or not all(split.values()):
+        raise AssertionError(f"bn_moments {tuple(x.shape)} {x.dtype} strides {x.stride()}: within 1e-12 of "
+                             f"plain {within} (largest share {rel:.3g}), bit-equal {split}")
+    return {"max_abs_err": float(d.max()), "max_rel_err": rel}
+
+
+def bn_moments_bound(x: torch.Tensor) -> dict:
+    """x read once, the (N, 2, C) float64 rows written once; 3 operations
+    an element (the square and two float64 adds) at the float32 peak."""
+    nbytes = x.numel() * x.element_size() + x.shape[0] * 2 * x.shape[1] * 8
+    bytes_ms, ops_ms = nbytes / PEAK_BYTES_PER_S * 1e3, 3 * x.numel() / PEAK_F32_OPS_PER_S * 1e3
+    return {"bytes": nbytes, "bound_ms": max(bytes_ms, ops_ms), "bound_by": "bytes" if bytes_ms >= ops_ms
+            else "operations"}
+
+
+def bn_moments_table(card: str) -> dict:
+    """The BatchNorm moments kernel (csrc/bn_moments.cu) against
+    `bn_moments_plain` at the inputs of SSD300's 23 BatchNorms at batch 32,
+    bfloat16 and float32, NCHW and channels_last, seeded normal values
+    (`compare_bn_moments`), and float64 at one small shape; at each layer's
+    main-path layout (`bn_main_path_layouts`) the kernel's, the plain
+    version's, this moment chain's and the float32 means' chain's ms beside the
+    bound, summed over the layers. Its launches are not counted: the count
+    is put back as it was."""
+    from object_detection_torch2_tpu_torch.ops import bn_moments_cuda
+    from object_detection_torch2_tpu_torch.ops.bn_moments import bn_moments_plain
+
+    saved = bn_moments_cuda.kernel_launches
+    layouts = bn_main_path_layouts()
+    g = torch.Generator(device=DEVICE).manual_seed(18)
+    rows, worst = [], {"max_abs_err": 0.0, "max_rel_err": 0.0}
+    keys = ("kernel_ms", "plain_ms", "chain_ms", "float32_chain_ms", "bound_ms", "bytes")
+    totals = {d: dict.fromkeys(keys, 0) for d in ("bfloat16", "float32")}
+    cases = [(d, layer, shape) for d in (torch.bfloat16, torch.float32) for layer, shape in bn_input_shapes()]
+    cases += [(torch.float64, "small", (4, 16, 9, 11))]
+    for dtype, layer, shape in cases:
+        name = str(dtype).removeprefix("torch.")
+        base = (torch.randn(shape, generator=g, device=DEVICE) * 2.0 + 0.5).to(dtype)
+        for channels_last in (False, True):
+            x = base.contiguous(memory_format=torch.channels_last) if channels_last else base
+            r = compare_bn_moments(x)
+            worst = {k: max(worst[k], r[k]) for k in worst}
+            if name == "float64" or bn_moments_cuda.layout_code(x) != layouts[name][layer]:
+                continue
+            row = {"layer": layer, "dtype": name, "shape": list(shape), "layout": layouts[name][layer], **r,
+                   **bn_moments_bound(x), "kernel_ms": time_ms(lambda: bn_moments_cuda.bn_moments_cuda(x), reps=10),
+                   "plain_ms": time_ms(lambda: bn_moments_plain(x), reps=3),
+                   "chain_ms": time_ms(lambda: moment_chain(x), reps=10),
+                   "float32_chain_ms": time_ms(lambda: float32_mean_chain(x), reps=10)}
+            rows.append(row)
+            for k in keys:
+                totals[name][k] += row[k]
+        del base, x
+    torch.cuda.empty_cache()
+    bn_moments_cuda.kernel_launches = saved
+    for name, t in totals.items():
+        print(f"bn_moments, the 23 BatchNorm inputs of SSD300 at batch {BATCH}, {name} at the main path's layouts "
+              f"({sum(1 for v in layouts[name].values() if v)} of 23 channels_last): within 1e-12 of plain and "
+              f"split-invariant in both layouts; kernel {t['kernel_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+              f"({t['bytes'] / 1e9:.3f} GB), this moment chain {t['chain_ms']:.4f}, the float32 "
+              f"means' chain {t['float32_chain_ms']:.4f}, plain {t['plain_ms']:.3f} ({card})")
+    print(f"bn_moments float64 (4, 16, 9, 11) both layouts and all: largest |d| {worst['max_abs_err']:.3g}, "
+          f"largest share of the magnitude {worst['max_rel_err']:.3g} (pin 1e-12)")
+    return {"layers": rows, "totals": totals, "main_layouts": layouts, **worst}
 
 
 def phase_nms_batch256(card: str) -> dict:
@@ -1822,18 +1975,19 @@ FIDELITY_ARGV = ["--imsize", "264", "--batch_size", "4", "--dtype", "float32", "
 FIDELITY_G_PAD = 8
 # A rank of the serving CLIs' 2-rank runs: each (port, CLI, argv) of the JSON
 # list in argv[2] in turn under torchrun's environment, a fresh port each;
-# the evaluate runs' APs and the NMS launches go to the result file argv[1].
+# the evaluate runs' APs and the NMS and BatchNorm moments launches go to
+# the result file argv[1].
 FIDELITY_RANK = """
 import json, os, sys
 from object_detection_torch2_tpu_torch.cli import evaluate, inference
-from object_detection_torch2_tpu_torch.ops import nms_cuda
-nms_cuda.launches = 0
+from object_detection_torch2_tpu_torch.ops import bn_moments_cuda, nms_cuda
+nms_cuda.launches = bn_moments_cuda.kernel_launches = 0
 out = []
 for port, cli, argv in json.loads(sys.argv[2]):
     os.environ["MASTER_PORT"] = str(port)
     got = (evaluate if cli == "evaluate" else inference).main(argv)
     out.append([[float(a) for a in got[0]], got[1], got[2], [float(a) for a in got[3]]] if cli == "evaluate" else None)
-json.dump({"runs": out, "nms": nms_cuda.launches}, open(sys.argv[1], "w"))
+json.dump({"runs": out, "nms": nms_cuda.launches, "bn": bn_moments_cuda.kernel_launches}, open(sys.argv[1], "w"))
 """
 
 
@@ -1916,7 +2070,8 @@ def float32_cli_readings(tmp: Path, also=None) -> dict:
     and strict APs and their means, each PNG's share of differing pixels;
     and the NMS launches of the runs (this process's and the ranks'). The
     one-process runs, and `also()` if given (its result under "also"), run
-    while the ranks do."""
+    while the ranks do. The ranks' launches of the BatchNorm moments
+    kernel under "bn_launches_ranks"."""
     from object_detection_torch2_tpu_torch.cli import evaluate, inference
     from object_detection_torch2_tpu_torch.ops import nms_cuda
 
@@ -1946,7 +2101,8 @@ def float32_cli_readings(tmp: Path, also=None) -> dict:
              for i, mode in enumerate(modes)}
     pngs = {mode: png_differences(tmp / f"{mode}_one" / "detection", tmp / f"{mode}_two" / "detection")
             for mode in modes}
-    return {"evaluate": evals, "pngs": pngs, "nms_launches": launches + sum(r["nms"] for r in ranks), "also": also_out}
+    return {"evaluate": evals, "pngs": pngs, "nms_launches": launches + sum(r["nms"] for r in ranks),
+            "bn_launches_ranks": sum(r["bn"] for r in ranks), "also": also_out}
 
 
 def same_aps(a, b) -> bool:
@@ -1962,15 +2118,16 @@ def phase_float32_fidelity(card: str) -> dict:
     - tests/test_torch_vgg.py::test_forward_matches_golden's three cases at
       atol 5e-2, 5e-2 and 5e-3 (`vgg_golden_readings`);
     - tests/test_torch_parallel_cli.py's inference test on 2 gloo ranks
-      against one process: with running statistics every PNG pixel-equal,
-      with batch statistics under 0.1% of an image's pixels apart;
-    - the evaluate CLI on 2 ranks with running statistics, where no sum
-      crosses the ranks: the one process's per-class parity and strict APs
-      and their means exactly, parity mAP 1.0.
-    Not held on the card, and kept on the CPU as it is: the evaluate test
-    itself, with batch statistics, whose moments the ranks sum in another
-    order than one process; its reading is printed. The NMS launches of
-    every run go into the kernels line."""
+      against one process: every PNG pixel-equal, with running and with
+      batch statistics;
+    - its evaluate test on 2 ranks against one process, with batch
+      statistics (the test's own) and with running statistics: the one
+      process's per-class parity and strict APs and their means exactly,
+      parity mAP 1.0. With batch statistics the ranks gather each image's
+      BatchNorm moments and add them in global image order, as one process
+      does (models/bn.py).
+    The NMS launches of every run, and the ranks' launches of the BatchNorm
+    moments kernel, go into the kernels line."""
     with tempfile.TemporaryDirectory() as tmp:
         cli = float32_cli_readings(Path(tmp), also=vgg_golden_readings)
     golden = cli["also"]
@@ -1978,26 +2135,27 @@ def phase_float32_fidelity(card: str) -> dict:
         if r["over"]:
             raise AssertionError(f"VGG16 golden forward {r['key']}: max |d| {r['max_abs']:.4g} against atol "
                                  f"{r['atol']}, {r['over']} of {r['of']} logits over")
-    ev = cli["evaluate"]["running"]
-    if not (ev["ranks_agree"] and same_aps(ev["two"], ev["one"]) and ev["one"][1] == 1.0):
-        raise AssertionError(f"evaluate CLI (running statistics), 2 ranks against one process: parity APs "
-                             f"{ev['two'][0]} against {ev['one'][0]}, strict {ev['two'][3]} against {ev['one'][3]}, "
-                             f"means {ev['two'][1:3]} against {ev['one'][1:3]} (exact; planted ground truth: 1.0)")
+    for mode in ("batch", "running"):
+        ev = cli["evaluate"][mode]
+        if not (ev["ranks_agree"] and same_aps(ev["two"], ev["one"]) and ev["one"][1] == 1.0):
+            raise AssertionError(f"evaluate CLI ({mode} statistics), 2 ranks against one process: parity APs "
+                                 f"{ev['two'][0]} against {ev['one'][0]}, strict {ev['two'][3]} against "
+                                 f"{ev['one'][3]}, means {ev['two'][1:3]} against {ev['one'][1:3]} (exact; planted "
+                                 "ground truth: 1.0)")
     shares = {mode: max(share for _, share in cli["pngs"][mode]) for mode in ("running", "batch")}
-    if shares["running"] > 0 or shares["batch"] >= 1e-3:
+    if shares["running"] > 0 or shares["batch"] > 0:
         raise AssertionError(f"inference CLI, 2 ranks against one process: PNG pixel shares {cli['pngs']} "
-                             "(pins: running statistics equal, batch statistics < 0.1%)")
-    kept = cli["evaluate"]["batch"]
+                             "(pins: every PNG equal)")
+    ev = cli["evaluate"]
     print(f"float32 fidelity ({card}): VGG16 golden forward max |d| "
           + ", ".join(f"{r['key']} {r['max_abs']:.4g} (atol {r['atol']})" for r in golden)
-          + f" (run while the ranks ran); 2 gloo ranks against one process: inference PNGs pixel-equal with running "
-          f"statistics, largest share apart {shares['batch']:.2e} with batch statistics (pin < 1e-3); evaluate "
-          f"with running statistics every class's APs exact (parity {ev['one'][1]}, strict {ev['one'][2]:.6f}); "
-          f"NMS launches {cli['nms_launches']}. Kept on the CPU: the evaluate test with batch statistics, here "
-          f"{'exact' if same_aps(kept['one'], kept['two']) else 'not exact'}: parity mAP {kept['two'][1]} against "
-          f"{kept['one'][1]}, strict {kept['two'][2]:.6f} against {kept['one'][2]:.6f}")
+          + " (run while the ranks ran); 2 gloo ranks against one process: inference PNGs pixel-equal with running "
+          "and with batch statistics; evaluate every class's APs exact with batch statistics (parity "
+          f"{ev['batch']['one'][1]}, strict {ev['batch']['one'][2]:.6f}) and with running statistics (parity "
+          f"{ev['running']['one'][1]}, strict {ev['running']['one'][2]:.6f}); NMS launches {cli['nms_launches']}, "
+          f"the ranks' BatchNorm moments launches {cli['bn_launches_ranks']}")
     return {"golden": golden, "evaluate": cli["evaluate"], "pngs": cli["pngs"],
-            "launches": {"nms_keep_sorted": cli["nms_launches"]}}
+            "launches": {"nms_keep_sorted": cli["nms_launches"], "bn_moments_ranks": cli["bn_launches_ranks"]}}
 
 
 def phase_device_cache_cli(card: str) -> dict:
@@ -2725,12 +2883,13 @@ def dp_trainer_runs(mesh, images, targets) -> dict:
 DP_EVAL_RANK = """
 import json, sys
 from object_detection_torch2_tpu_torch.cli import evaluate
-from object_detection_torch2_tpu_torch.ops import int8_conv_cuda, nms_cuda, quantize_act_cuda
+from object_detection_torch2_tpu_torch.ops import bn_moments_cuda, int8_conv_cuda, nms_cuda, quantize_act_cuda
 nms_cuda.launches = int8_conv_cuda.kernel_launches = quantize_act_cuda.kernel_launches = 0
+bn_moments_cuda.kernel_launches = 0
 aps, mean_ap, strict_ap, _ = evaluate.main(sys.argv[2:])
 json.dump({"mean_ap": mean_ap, "strict_ap": strict_ap, "aps": [float(a) for a in aps], "nms": nms_cuda.launches,
-           "int8_conv": int8_conv_cuda.kernel_launches, "quantize_act": quantize_act_cuda.kernel_launches},
-          open(sys.argv[1], "w"))
+           "int8_conv": int8_conv_cuda.kernel_launches, "quantize_act": quantize_act_cuda.kernel_launches,
+           "bn_moments": bn_moments_cuda.kernel_launches}, open(sys.argv[1], "w"))
 """
 
 
@@ -2996,13 +3155,17 @@ def dp_gloo_evaluate(card: str, tmp: Path) -> dict:
             if got["mean_ap"] != single[1] or not abs(single[1] - 1.0) <= 1e-6:
                 raise AssertionError(f"{case}: rank {r}'s parity mAP {got['mean_ap']!r}, one process's {single[1]!r} "
                                      "(planted ground truth: 1.0)")
-            want = {"nms": n_batches, **({"int8_conv": 11 * n_batches, "quantize_act": 11 * n_batches} if flags
-                                         else {})}
+            if bn_mode == "batch" and got["strict_ap"] != single[2]:
+                raise AssertionError(f"{case}: rank {r}'s strict mAP {got['strict_ap']!r}, one process's "
+                                     f"{single[2]!r} (exact: the batch statistics are one process's)")
+            want = {"nms": n_batches, "bn_moments": 23 * n_batches if bn_mode == "batch" else 0,
+                    **({"int8_conv": 11 * n_batches, "quantize_act": 11 * n_batches} if flags else {})}
             if any(got[k] != v for k, v in want.items()):
                 raise AssertionError(f"{case}: rank {r}'s launches {got}, expected {want}")
         res[case] = {"mean_ap": ranks[0]["mean_ap"], "strict_ap": ranks[0]["strict_ap"],
                      "single_strict_ap": single[2], "wall_s": wall_s,
-                     "launches": [{k: got[k] for k in ("nms", "int8_conv", "quantize_act")} for got in ranks]}
+                     "launches": [{k: got[k] for k in ("nms", "int8_conv", "quantize_act", "bn_moments")}
+                                  for got in ranks]}
         print(f"data parallel, cli.evaluate --distributed, 2 gloo ranks on one card, {case} ({bn_mode} statistics), "
               f"{N_IMAGES} records at batch {BATCH} (rank 1's last slice empty): parity mAP {ranks[0]['mean_ap']} on "
               f"both ranks = one process's; strict {ranks[0]['strict_ap']:.6f} (one process {single[2]:.6f}); "
@@ -4275,7 +4438,8 @@ def dp_launches(dp: dict) -> dict:
             + sum(dp["gloo_trainer"]["bfloat16"]["conv12_launches"]),
             "nms_keep_sorted": sum(r["nms"] for case in ev.values() for r in case["launches"]),
             "int8_conv": sum(r["int8_conv"] for r in ev["trunk_int8"]["launches"]),
-            "quantize_act": sum(r["quantize_act"] for r in ev["trunk_int8"]["launches"])}
+            "quantize_act": sum(r["quantize_act"] for r in ev["trunk_int8"]["launches"]),
+            "bn_moments": sum(r["bn_moments"] for case in ev.values() for r in case["launches"])}
 
 
 def int8_entry(r: dict) -> dict:
@@ -4360,14 +4524,51 @@ def conv12_entry(conv: dict, training: dict, train_cli: dict, trajectory: dict, 
 
 
 PHASE_SECONDS = {}
+# the BatchNorm moments kernel's launches in this process by phase: every
+# forward with batch statistics launches it once a BatchNorm, so its count is
+# set to 0 just before each phase and read just after
+BN_LAUNCHES = {}
 
 
 def timed(phase, card: str):
-    """phase(card), its wall seconds kept in PHASE_SECONDS under its name."""
+    """phase(card), its wall seconds kept in PHASE_SECONDS and its launches
+    of the BatchNorm moments kernel in BN_LAUNCHES, under its name."""
+    from object_detection_torch2_tpu_torch.ops import bn_moments_cuda
+
+    bn_moments_cuda.kernel_launches = 0
     t0 = time.perf_counter()
     out = phase(card)
     PHASE_SECONDS[phase.__name__] = round(time.perf_counter() - t0, 1)
+    BN_LAUNCHES[phase.__name__] = bn_moments_cuda.kernel_launches
     return out
+
+
+def bn_moments_entry(table: dict, dp: dict, fidelity: dict) -> dict:
+    """The kernels-line entry of bn_moments: bfloat16 times summed over the 23
+    BatchNorm inputs of SSD300 at batch 32 (the main path's layouts) in the
+    top-level keys, float32 beside them; launches by path (each phase's in
+    this process, plus the 2-rank runs' ranks). The main paths (serving,
+    evaluation, training) must have launched it."""
+    by_path = {phase.removeprefix("phase_"): n for phase, n in BN_LAUNCHES.items()}
+    by_path["data_parallel"] += dp["bn_moments"]
+    by_path["float32_fidelity"] += fidelity["launches"]["bn_moments_ranks"]
+    idle = [p for p in ("main_path", "evaluation", "training") if not by_path.get(p)]
+    if idle:
+        raise AssertionError(f"bn_moments was not launched on the main path(s) {idle}: {by_path}")
+    t, f = table["totals"]["bfloat16"], table["totals"]["float32"]
+    return {"name": "bn_moments", "route": "cuda", "custom_op": "odt::bn_moments (ops/registry.py)",
+            "source": "object_detection_torch2_tpu_torch/csrc/bn_moments.cu",
+            "replaces": "object_detection_torch2_tpu/models/bn.py:84 (BatchNormTPU's jnp.mean batch moments, "
+                        "reduced by XLA; not a TPU kernel)",
+            "launches": sum(by_path.values()), "launches_by_path": by_path, "max_abs_err": table["max_abs_err"],
+            "max_rel_err": table["max_rel_err"], "split_bit_equal": True, "ms": t["kernel_ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": "bytes", "library_ms": None,
+            "library": "none: no one PyTorch call returns both per-image sums",
+            "chain_ms": t["chain_ms"], "float32_chain_ms": t["float32_chain_ms"], "bytes": t["bytes"],
+            "float32": {k: f[k] for k in ("kernel_ms", "plain_ms", "chain_ms", "float32_chain_ms", "bound_ms",
+                                          "bytes")},
+            "shape": "the 23 BatchNorm inputs of SSD300 at batch 32, 300x300, bfloat16, main-path layouts",
+            "layers": table["layers"]}
 
 
 def main(argv=None) -> int:
@@ -4487,8 +4688,10 @@ def main(argv=None) -> int:
                        (entries[2], "int8_conv"), (entries[3], "quantize_act")):
         entry["launches_by_path"]["cls_trajectory"] = cls[key]
         entry["launches"] += cls[key]
+    entries.append(bn_moments_entry(results["kernel_vs_plain"]["bn_moments"], dp, results["float32_fidelity"]))
     results["kernels"] = entries
     results["phase_seconds"] = PHASE_SECONDS
+    results["bn_launches"] = BN_LAUNCHES
     if args.out:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps(results, indent=1))

@@ -2,8 +2,12 @@
 (object_detection_torch2_tpu/models/bn.py:46-109), plain layout.
 
 Held against the JAX package, not against torch's own BatchNorm2d, so:
-- the batch variance is the single-pass max(E[x^2] - E[x]^2, 0) in float32,
-  not torch's two-pass variance;
+- the batch variance is the single-pass max(E[x^2] - E[x]^2, 0), not torch's
+  two-pass variance, taken in float64 from the float64 moments and rounded
+  once (`batch_variance`). With the subtraction in float32 the trajectory
+  golden's step-0 gradient of bn_10_1's bias falls on the other side of a
+  near-tie than the reference run's did: 5.5e-3 from the golden, past
+  tests/test_torch_trajectory.py's 5e-3 pin (bn_probe.py --step0);
 - `mask` (N,), 1 for real rows, excludes the pad rows of a ragged batch from the
   statistics, so real rows come out as from a ragged-size forward;
 - the running statistics are updated (only in `training` mode, with batch
@@ -21,14 +25,23 @@ State keys are torch's (`weight`, `bias`, `running_mean`, `running_var`,
 `num_batches_tracked`), so the reference's state_dicts load unchanged. The
 TPU's paired-lane `fold` layout is not ported.
 
+The batch moments are per-image float64 partial sums (`ops.bn_moments`: the
+kernel csrc/bn_moments.cu on the card, the plain version on the CPU): each
+image's sums over (H, W) of x and of its square, in an order that depends on
+(C, H, W) and the layout alone, never on the batch. A ragged batch's pad rows
+are multiplied by its 0/1 mask (exact). The totals are one sum over the
+images of the (N, 2, C) rows in global image order; the mean and the
+variance are taken from total / n in float64 and rounded once to float32
+(kept in float64 for a float64 input).
+
 Under a data-parallel mesh (`set_mesh`; parallel/mesh.py) the batch
 statistics are the GLOBAL batch's, as the JAX package's jitted forward
-reduces over the batch sharded across every device: without a mask each
-rank's means are weighted by its share (the ranks hold equal slices) and
-summed over the ranks (`sync_moments`), so over one rank the sum is the
-rank's own mean, bit for bit; with a mask the masked sums and the count are
-summed and divided once, as one process does. The backward all-reduces the
-incoming gradients of the moments, so the extras' gradients flow through the
+reduces over the batch sharded across every device: each rank's rows (and
+the mask) are gathered exactly into the global (N, 2, C) tensor in global
+image order (`gather_rows`), and every rank makes the same sum call on it as
+one process does on its whole batch, so the statistics are one process's,
+bit for bit, however the batch is split. The backward all-reduces the
+gradients of the gathered rows, so the extras' gradients flow through the
 global statistics. The count of an unmasked batch stays a host number
 (n_local x world): a train step makes no host sync for it.
 """
@@ -39,12 +52,19 @@ import numpy as np
 import torch
 from torch import nn
 
-from object_detection_torch2_tpu_torch.parallel.mesh import sync_moments
+from object_detection_torch2_tpu_torch.ops.bn_moments import bn_moments, math_dtype
+from object_detection_torch2_tpu_torch.parallel.mesh import gather_rows
 
 
 def _math(x: torch.Tensor) -> torch.Tensor:
     """x in the dtype of BatchNorm's math: float32, or float64 as it is."""
-    return x if x.dtype == torch.float64 else x.float()
+    return x.to(math_dtype(x.dtype))
+
+
+def batch_variance(mean64: torch.Tensor, mean_sq64: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """max(E[x^2] - E[x]^2, 0) from the float64 moments, rounded once to
+    `dtype` (bn_probe.py --step0 measures the float32 form against it)."""
+    return torch.clamp(mean_sq64 - mean64.square(), min=0.0).to(dtype)
 
 
 class BatchNorm(nn.Module):
@@ -63,33 +83,28 @@ class BatchNorm(nn.Module):
                 out_dtype: torch.dtype | None = None) -> torch.Tensor:
         """x: (N, C, H, W) in any memory format -> same shape in `out_dtype`
         (default: x's dtype)."""
-        dims = (0, 2, 3)
         if use_batch_stats:
-            xf = _math(x)
             mesh = self.mesh
+            parts = bn_moments(x)  # (n, 2, C) float64: each image's sums of x and of its square
             if mask is None:
-                world = 1 if mesh is None else mesh.world
+                if mesh is not None:
+                    parts = gather_rows(parts, mesh)
                 # the count is a host number: a tensor made from it on the
                 # card would be a blocking copy, a host sync per layer
-                n = np.float32(x.numel() // x.shape[1] * world)
-                mean = xf.mean(dim=dims)
-                mean_sq = xf.square().mean(dim=dims)
-                if mesh is not None:
-                    mean, mean_sq = sync_moments(torch.stack([mean, mean_sq]) * (1.0 / world), mesh).unbind(0)
+                n = np.float32(len(parts) * x.shape[2] * x.shape[3])
+                moments = parts.sum(dim=0) / float(n)
             else:
-                m = mask.float().reshape(-1, 1, 1, 1)
-                count = m.sum() * (x.shape[2] * x.shape[3])
-                total = (xf * m).sum(dim=dims)
-                total_sq = (xf.square() * m).sum(dim=dims)
+                m = mask.to(torch.float64)
+                parts = parts * m[:, None, None]
                 if mesh is not None:
                     c = x.shape[1]
-                    flat = sync_moments(torch.cat([total, total_sq, count.reshape(1)]), mesh)
-                    total, total_sq, count = flat[:c], flat[c:2 * c], flat[2 * c]
-                n = torch.clamp(count, min=1.0)
-                inv_n = 1.0 / n
-                mean = total * inv_n
-                mean_sq = total_sq * inv_n
-            var = torch.clamp(mean_sq - mean.square(), min=0.0)
+                    flat = gather_rows(torch.cat([parts.reshape(len(m), 2 * c), m[:, None]], dim=1), mesh)
+                    parts, m = flat[:, :2 * c].reshape(-1, 2, c).contiguous(), flat[:, 2 * c]
+                n = torch.clamp((m.sum() * (x.shape[2] * x.shape[3])).float(), min=1.0)
+                moments = parts.sum(dim=0) / n.double()
+            mean64, mean_sq64 = moments.unbind(0)
+            mean = mean64.to(math_dtype(x.dtype))
+            var = batch_variance(mean64, mean_sq64, mean.dtype)
             if self.training:
                 with torch.no_grad():
                     # n / max(n - 1, 1) in float32, on the host or the device

@@ -10,8 +10,10 @@ A source's own flags are in `SOURCE_FLAGS`: the NMS sweep is built with
 `-fmad=false` so that it rounds as its plain version does; the two conv_1_2
 kernels are built with FMA contraction, as a convolution's sum should be; the
 int8 convolution sums in int32 and writes its float epilogue with explicit
-round-to-nearest intrinsics, which no flag changes, and so does the
-activation quantize (`__fdiv_rn`, `__frcp_rn`, `__fmul_rn`).
+round-to-nearest intrinsics, which no flag changes, and so do the
+activation quantize (`__fdiv_rn`, `__frcp_rn`, `__fmul_rn`) and the
+BatchNorm moments (the square by `__fmul_rn` / `__dmul_rn`, then float64
+adds).
 `tensor_core_instructions` counts the tensor-core instructions in a built
 library's machine code (cuobjdump -sass): HMMA (mma.sync on floating-point
 types), HGMMA (wgmma on them), IMMA (mma.sync on int8) and IGMMA (wgmma on

@@ -17,13 +17,17 @@ implementation for each device and a fake one for tracing:
 - `torch.ops.odt.quantize_act(x, sx, reciprocal)`: "cuda" runs the one-pass
   activation quantize (`ops.quantize_act_cuda.quantize_act_cuda`), "cpu" the
   plain version (`ops.int8_conv.quantize_act_plain`, models/quant.py's
-  `quantize_act`); no gradient either.
+  `quantize_act`); no gradient either;
+- `torch.ops.odt.bn_moments(x)`: BatchNorm's per-image float64 moments
+  (N, 2, C); "cuda" runs csrc/bn_moments.cu (`ops.bn_moments_cuda.bn_moments_cuda`),
+  "cpu" the plain version (`ops.bn_moments.bn_moments_plain`); its gradient
+  is `ops.bn_moments.bn_moments_backward`.
 
 The op dispatches on its tensors' device. That is no fallback: a CUDA tensor
 launches the kernel or raises, and only a CPU tensor takes the plain version.
 The kernels' wrappers still count their launches. `ops.nms_cuda.keep_sorted`,
-`ops.conv12.conv12`, `ops.int8_conv.int8_conv` and
-`ops.int8_conv.quantize_act` call these ops; an exported program holds them
+`ops.conv12.conv12`, `ops.int8_conv.int8_conv`, `ops.int8_conv.quantize_act`
+and `ops.bn_moments.bn_moments` call these ops; an exported program holds them
 as calls of `torch.ops.odt.*`, so loading one needs this module imported and
 no model code.
 
@@ -35,8 +39,15 @@ from typing import Optional
 
 import torch
 
+from object_detection_torch2_tpu_torch.ops import bn_moments as bn_moments_mod
+from object_detection_torch2_tpu_torch.ops import (
+    bn_moments_cuda,
+    conv12_cuda,
+    int8_conv_cuda,
+    nms_cuda,
+    quantize_act_cuda,
+)
 from object_detection_torch2_tpu_torch.ops import conv12 as conv12_mod
-from object_detection_torch2_tpu_torch.ops import conv12_cuda, int8_conv_cuda, nms_cuda, quantize_act_cuda
 from object_detection_torch2_tpu_torch.ops.int8_conv import int8_conv_plain, output_size, quantize_act_plain
 from object_detection_torch2_tpu_torch.ops.nms import _blocked_keep_sorted
 
@@ -110,3 +121,22 @@ def _quantize_act_cuda(x, sx, reciprocal):
 @quantize_act.register_fake
 def _quantize_act_fake(x, sx, reciprocal):
     return torch.empty(x.shape, dtype=torch.int8, device=x.device, memory_format=torch.channels_last)
+
+
+@torch.library.custom_op("odt::bn_moments", mutates_args=(), device_types="cpu")
+def bn_moments(x: torch.Tensor) -> torch.Tensor:
+    """(N, 2, C) float64: each image's sums over (H, W) of x and of its square."""
+    return bn_moments_mod.bn_moments_plain(x)
+
+
+@bn_moments.register_kernel("cuda")
+def _bn_moments_cuda(x):
+    return bn_moments_cuda.bn_moments_cuda(x)
+
+
+@bn_moments.register_fake
+def _bn_moments_fake(x):
+    return x.new_empty((x.shape[0], 2, x.shape[1]), dtype=torch.float64)
+
+
+bn_moments.register_autograd(bn_moments_mod.bn_moments_backward, setup_context=bn_moments_mod.bn_moments_setup_context)

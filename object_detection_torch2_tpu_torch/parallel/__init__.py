@@ -6,6 +6,7 @@ from object_detection_torch2_tpu_torch.parallel.mesh import (  # noqa: F401
     all_gather_rows,
     all_reduce_mean_,
     barrier,
+    gather_rows,
     init_distributed,
     init_process,
     launch,
@@ -13,5 +14,4 @@ from object_detection_torch2_tpu_torch.parallel.mesh import (  # noqa: F401
     make_mesh,
     replicate,
     shutdown,
-    sync_moments,
 )

@@ -14,8 +14,9 @@ takes one of these.
 What the mesh computes is the JAX package's:
 - each rank holds the contiguous rows [rank * n, (rank + 1) * n) of every
   global batch (`local_rows`);
-- BatchNorm's batch statistics are those of the global batch
-  (`sync_moments`, models/bn.py), with a backward that all-reduces too;
+- BatchNorm's batch statistics are those of the global batch: each rank's
+  per-image moments gathered exactly in global image order (`gather_rows`,
+  models/bn.py), with a backward that all-reduces too;
 - the gradient and the loss are the global batch's: one all-reduce of the
   flattened trainable gradients, then the mean (`all_reduce_mean_`);
 - the state is replicated without a broadcast: ranks build the same seeded
@@ -264,31 +265,37 @@ def barrier(mesh: Mesh | None) -> None:
         dist.barrier(group=mesh.host_group)
 
 
-class _SyncMoments(torch.autograd.Function):
-    """Sum over the ranks forward; sum of the incoming gradients backward."""
+class _GatherRows(torch.autograd.Function):
+    """Each rank's rows into the global tensor, in rank order: one all-reduce
+    of a zero-filled global tensor in which each rank fills its own rows
+    (exact: x + 0 = x). Backward: the same all-reduce of the gradient, then
+    each rank takes its own rows."""
 
     @staticmethod
-    def forward(ctx, local, group):
-        ctx.group = group
-        total = local.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(total, group=group)
-        return total
+    def forward(ctx, local, group, rank, world):
+        ctx.group, ctx.rows = group, slice(rank * len(local), (rank + 1) * len(local))
+        full = local.new_zeros((world * len(local), *local.shape[1:]))
+        full[ctx.rows] = local
+        dist.all_reduce(full, group=group)
+        return full
 
     @staticmethod
     def backward(ctx, grad):
         total = grad.clone(memory_format=torch.contiguous_format)
         dist.all_reduce(total, group=ctx.group)
-        return total, None
+        return total[ctx.rows], None, None, None
 
 
-def sync_moments(local: torch.Tensor, mesh: Mesh) -> torch.Tensor:
-    """The sum over the ranks of each rank's `local` moments (e.g. stacked
-    share-weighted means, or masked sums and the count), differentiable: the
-    backward all-reduces the incoming gradient too, since with the global
-    loss (the mean of the ranks' losses, whose gradients are averaged once)
-    every rank's statistics feed every rank's loss. Over one rank the sum is
-    the input itself, bit for bit."""
-    return _SyncMoments.apply(local, mesh.group)
+def gather_rows(local: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """The global (world * n, ...) tensor of every rank's (n, ...) `local`
+    rows in rank order, which is global row order (`local_rows`); exact and
+    differentiable. The backward sums the incoming gradients over the ranks
+    (with the global loss, the mean of the ranks' losses, every rank's rows
+    feed every rank's loss) and gives each rank its own rows. BatchNorm
+    gathers its per-image moments with it (models/bn.py), so every rank adds
+    the same rows in the same order as one process. Over one rank it is
+    `local` itself, bit for bit."""
+    return _GatherRows.apply(local, mesh.group, mesh.rank, mesh.world)
 
 
 def fingerprint(module: torch.nn.Module) -> str:

@@ -764,3 +764,81 @@ def test_float32_ssd_rows_do_not_depend_on_the_batch_split(card):
     kernels = {e.name for e in prof.events() if e.device_type == DeviceType.CUDA}
     cudnn = [k for k in kernels if any(m in k.lower() for m in ("cudnn", "fprop", "convolve", "fft", "winograd"))]
     assert kernels and not cudnn, sorted(kernels)
+
+
+BN_SHAPES = ((5, 64, 21, 19), (5, 3, 7, 9), (5, 256, 3, 3), (5, 256, 1, 1), (5, 1024, 19, 19), (5, 64, 150, 150))
+
+
+def _bn_bits(t):
+    return t.contiguous().view(torch.int64)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32, torch.float64])
+def test_bn_moments_kernel_equals_plain(card, dtype):
+    """csrc/bn_moments.cu against `bn_moments_plain` on the card, NCHW and
+    channels_last (the extras' 1 x 1 and 3 x 3 maps, an odd channel count,
+    a chunked 150 x 150 map): each float64 sum within 1e-12 of its
+    magnitude; the rows of a batch of 5 bit-equal to those of its splits
+    (1 + 4, 2 + 3, 5 single images) and of a second call; one launch a
+    call."""
+    from object_detection_torch2_tpu_torch.ops import bn_moments_cuda
+    from object_detection_torch2_tpu_torch.ops.bn_moments import bn_moments_plain
+
+    g = torch.Generator(device=card).manual_seed(7)
+    for shape in BN_SHAPES:
+        base = (torch.randn(shape, generator=g, device=card, dtype=torch.float64) * 3.0 + 1.5).to(dtype)
+        for x in (base, base.contiguous(memory_format=torch.channels_last)):
+            before = bn_moments_cuda.kernel_launches
+            got = bn_moments_cuda.bn_moments_cuda(x)
+            torch.cuda.synchronize()
+            assert bn_moments_cuda.kernel_launches == before + 1
+            want = bn_moments_plain(x)
+            assert got.shape == (shape[0], 2, shape[1]) and got.dtype == torch.float64
+            mag = torch.stack([x.abs().sum(dim=(2, 3), dtype=torch.float64), want[:, 1]], dim=1)
+            assert bool(((got - want).abs() <= 1e-12 * mag).all()), (shape, x.stride())
+            for split in ([1, 4], [2, 3], [1] * 5):
+                parts = torch.cat([bn_moments_cuda.bn_moments_cuda(p) for p in x.split(split)])
+                assert torch.equal(_bn_bits(parts), _bn_bits(got)), (shape, x.stride(), split)
+            assert torch.equal(_bn_bits(bn_moments_cuda.bn_moments_cuda(x)), _bn_bits(got))
+
+
+def test_bn_moments_wrapper_refusals(card):
+    """The kernel's wrapper raises on what the kernel does not take, and
+    copies nothing: a CPU tensor, float16, a layout that is neither NCHW nor
+    channels_last, a view that is not 16-byte aligned where the shape takes
+    16-byte loads; through its custom op it passes torch.library's checks
+    on the card."""
+    from torch.library import opcheck
+
+    from object_detection_torch2_tpu_torch.ops import bn_moments_cuda, registry
+
+    x = torch.randn(2, 8, 4, 4, device=card)
+    opcheck(registry.bn_moments, (x.clone().requires_grad_(True),))
+    with pytest.raises(ValueError, match="CUDA"):
+        bn_moments_cuda.bn_moments_cuda(x.cpu())
+    with pytest.raises(TypeError, match="float64"):
+        bn_moments_cuda.bn_moments_cuda(x.half())
+    with pytest.raises(ValueError, match="contiguous"):
+        bn_moments_cuda.bn_moments_cuda(x[:, :, ::2])
+    flat = torch.randn(1 + 2 * 8 * 4 * 4, device=card)
+    with pytest.raises(ValueError, match="aligned"):
+        bn_moments_cuda.bn_moments_cuda(flat[1:].view(2, 8, 4, 4))
+
+
+def test_ssd_with_batch_statistics_launches_the_moments_kernel(card):
+    """A training-mode SSD300 forward with batch statistics at batch 2 on
+    the card launches the moments kernel once a BatchNorm (23), and its
+    float32 output and gradients are bit-equal over two runs."""
+    from object_detection_torch2_tpu_torch.ops import bn_moments_cuda
+
+    model = SSD(num_classes=21, seed=0).to(card).train()
+    x = torch.from_numpy(np.random.default_rng(5).random((2, 300, 300, 3), dtype=np.float32)).to(card)
+    runs = []
+    for _ in range(2):
+        model.zero_grad(set_to_none=True)
+        before = bn_moments_cuda.kernel_launches
+        out = model(x, use_batch_stats=True)
+        assert bn_moments_cuda.kernel_launches == before + 23
+        out.square().mean().backward()
+        runs.append([out.detach()] + [p.grad.clone() for p in model.parameters() if p.grad is not None])
+    assert len(runs[0]) > 1 and all(torch.equal(a, b) for a, b in zip(*runs))
